@@ -20,7 +20,20 @@ Phases, in order; any failure exits nonzero and prints no result:
      (send_packet / receive_frame / drain), holds every frame's adler32
      and md5 against the golden that the JAX package produced, checks
      that the deblock wave kernel ran 8 x 254 times, then times a warm
-     second decode.
+     second decode;
+  5. K2: idct8x8_int against the plain idct8x8_int_plain on the card over
+     48,960 blocks (DC-only rows, all-zero blocks, values outside int16,
+     rows whose sums overflow int32), exact; kernel and plain times at
+     48,960 blocks (a 1080-line frame picture) and 24,480 (a field), by
+     CUDA events, and the kernel's device time by torch.profiler;
+  6. MPEG-2 main path: decodes the two committed 1920x1080 streams (8
+     field pictures I/I/P..., 7 frame pictures I/P/B) with the port's
+     MPEG2Decoder on the card, holds every frame's adler32 and md5
+     against the JAX package's golden, checks that K2 ran once per coded
+     picture, prints per-picture recon ms by type, then times a warm
+     second decode of each and profiles a third (device busy share);
+     then runs the frame-picture interlace tools, which those streams do
+     not use, on random 1080p inputs on the card and on the CPU, exact.
 The last two lines are the kernels' JSON record and the result JSON.
 """
 
@@ -49,6 +62,40 @@ def cuda_ms(fn, reps=3):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def kernel_device_ms(fn, kernel, reps=20):
+    """Mean device milliseconds per launch of the CUDA kernel whose name
+    contains `kernel`, over reps calls of fn(), by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.device_time_total for e in prof.key_averages()
+          if kernel in e.key]
+    if not us:
+        raise AssertionError(f"the profiler saw no {kernel} launch")
+    return sum(us) / reps / 1e3
+
+
+def device_busy(fn):
+    """Run fn() once under torch.profiler: -> (device ops, device ms,
+    wall ms), the device ms summed over every kernel and copy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return (sum(e.count for e in ops),
+            sum(e.self_device_time_total for e in ops) / 1e3, 1e3 * wall)
 
 
 def phase_lines(dev):
@@ -223,6 +270,138 @@ def phase_decode(dev, card):
     return launches
 
 
+def phase_idct(dev):
+    import torch
+    from libav_tpu_torch import testdata
+    from libav_tpu_torch.ops import idct
+    out = {"max_abs_err": 0}
+    for n in (48960, 24480):
+        x = torch.as_tensor(testdata.idct_blocks(5, n)).to(dev)
+        got = idct.idct8x8_int(x)
+        want = idct.idct8x8_int_plain(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"idct8x8_int differs from "
+                                 f"idct8x8_int_plain on {n} blocks")
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 int((got - want).abs().max()))
+        out[n] = (cuda_ms(lambda: idct.idct8x8_int(x), reps=20),
+                  cuda_ms(lambda: idct.idct8x8_int_plain(x)),
+                  kernel_device_ms(lambda: idct.idct8x8_int(x),
+                                   "idct8x8_kernel"))
+        log(f"phase 5 K2: {n} blocks exact; kernel {out[n][0]:.4f} ms per "
+            f"call back to back ({out[n][2]:.4f} ms of it on the device, "
+            f"by the profiler), plain {out[n][1]:.4f} ms")
+    return out
+
+
+def decode_mpeg2(dev, datas, timed=False):
+    """Decode an MPEG-2 stream once; -> (host (Y, U, V) per frame,
+    seconds, per-picture (type, recon ms) if timed, host seconds in slice
+    entropy)."""
+    import torch
+    from libav_tpu_torch.avutil.frame import Packet
+    from libav_tpu_torch.codecs.mpeg12 import MPEG2Decoder
+    dec = MPEG2Decoder(device=dev)
+    recon_ms = []
+    entropy_s = [0.0]
+
+    def wrap(name, field):
+        inner = getattr(dec, name)
+
+        def run(*args):
+            t0 = time.perf_counter()
+            out = inner(*args)
+            torch.cuda.synchronize(dev)
+            kind = "IPB"[dec.pic.pict_type - 1] + (" field" if field else "")
+            recon_ms.append((kind, 1e3 * (time.perf_counter() - t0)))
+            return out
+        setattr(dec, name, run)
+    if timed:
+        wrap("_reconstruct", False)
+        wrap("_reconstruct_field", True)
+    slice_entropy = dec._decode_slice
+
+    def entropy(*args):
+        t0 = time.perf_counter()
+        try:
+            return slice_entropy(*args)
+        finally:
+            entropy_s[0] += time.perf_counter() - t0
+    dec._decode_slice = entropy
+    try:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        frames = dec.decode_all(Packet(data=d, pts=i)
+                                for i, d in enumerate(datas))
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+    finally:
+        dec.close()
+    host = [f.to_host().planes for f in frames]
+    return host, seconds, recon_ms, entropy_s[0]
+
+
+def phase_mpeg2(dev, card):
+    from libav_tpu_torch import testdata
+    from libav_tpu_torch.ops import idct
+    launches = 0
+    for name, pictures in testdata.MPEG2_SMOKE.items():
+        path, golden = testdata.mpeg2_paths(name)
+        datas = testdata.read_packets(path)
+        gold = testdata.load_golden(golden)
+        nframes = len(gold["frames"])
+
+        idct.idct8x8_int.launches = 0
+        host, cold_s, recon_ms, _ = decode_mpeg2(dev, datas, timed=True)
+        n = idct.idct8x8_int.launches
+        check_golden(host, gold, f"{name} first decode")
+        if n != pictures:
+            raise AssertionError(f"{name}: idct8x8_int launched {n} times, "
+                                 f"expected {pictures}")
+        launches += n
+        per = ", ".join(f"{k} {ms:.2f}" for k, ms in recon_ms)
+        log(f"phase 6 {name} first decode: {nframes} frames adler32+md5 "
+            f"identical to the golden, {n} K2 launches, {cold_s:.2f} s; "
+            f"per-picture recon ms (synchronised): {per}")
+
+        host, warm_s, _, entropy_s = decode_mpeg2(dev, datas)
+        check_golden(host, gold, f"{name} second decode")
+        log(f"phase 6 {name} warm decode: {nframes / warm_s:.3f} fps "
+            f"({1e3 * warm_s / nframes:.1f} ms/frame), host slice entropy "
+            f"{1e3 * entropy_s / nframes:.1f} ms/frame, other "
+            f"{1e3 * (warm_s - entropy_s) / nframes:.1f} ms/frame [{card}]")
+        ops, busy_ms, wall_ms = device_busy(lambda: decode_mpeg2(dev, datas))
+        log(f"phase 6 {name} profiled decode: {ops} device ops, "
+            f"{busy_ms:.3f} ms on the device in {wall_ms:.1f} ms of wall "
+            f"(device busy {100 * busy_ms / wall_ms:.2f}%)")
+    return launches
+
+
+def phase_interlace(dev):
+    """The frame-picture interlace tools (field MC, field DCT, dual prime),
+    which the committed streams do not use: the recon program on random
+    1920x1088 inputs gives the same planes on the card as on the CPU."""
+    import torch
+    from libav_tpu_torch import testdata
+    from libav_tpu_torch.avutil.hwdevice import state_from_numpy
+    from libav_tpu_torch.codecs import mpegvideo
+    args, kw = testdata.recon_inputs(7, 120, 68, True, True, True)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        prog = mpegvideo.recon(120, 68, "mpeg2", True, True, 0,
+                               interlaced=True, dual=True, device=d)
+        planes, padded = prog(*state_from_numpy(args, d),
+                              **state_from_numpy(kw, d))
+        outs.append([p.cpu() for p in planes + padded])
+    for g, w in zip(*outs):
+        if not torch.equal(g, w):
+            raise AssertionError("interlaced recon on the card differs from "
+                                 "the CPU")
+    log("phase 6 interlace tools: 1920x1088 field MC + field DCT + dual "
+        "prime recon identical on the card and the CPU")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -255,6 +434,9 @@ def main():
     lines = phase_lines(dev)
     deblock = phase_deblock(dev)
     launches = phase_decode(dev, card)
+    k2 = phase_idct(dev)
+    k2_launches = phase_mpeg2(dev, card)
+    phase_interlace(dev)
 
     ms, plain_ms = deblock["part=True"]
     record = {"kernels": [{
@@ -268,6 +450,20 @@ def main():
         "plain_ms": plain_ms,
         "ms_is": "one 1920x1088 frame deblock (254 waves), bS build "
                  "included",
+    }, {
+        "name": "mpv_idct8x8",
+        "route": "cuda",
+        "source": "libav_tpu_torch/csrc/mpv_idct.cu",
+        "replaces": "libav_tpu/ops/idct.py:167",
+        "launches": k2_launches,
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2[48960][0],
+        "plain_ms": k2[48960][1],
+        "device_ms": k2[48960][2],
+        "ms_is": "48,960 blocks (a 1080-line frame picture), per call back "
+                 "to back; device_ms is the kernel alone, by the profiler; "
+                 f"at 24,480 (a field): {k2[24480][0]} ms, device "
+                 f"{k2[24480][2]} ms, plain {k2[24480][1]} ms",
     }], "card": card}
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": info}))

@@ -26,4 +26,4 @@ def find_decoder(codec_id: str) -> Type[Decoder]:
     return _DECODERS[codec_id]
 
 
-from libav_tpu_torch.codecs import h264  # noqa: E402,F401  (registers)
+from libav_tpu_torch.codecs import h264, mpeg12  # noqa: E402,F401

@@ -36,15 +36,9 @@ class H264Decoder(_ref.H264Decoder):
         super().__init__(params, options)
         self.device = dev = hwdevice.device(device)
 
-        def program(*key, **flags):
-            module = _device.recon_h264_sparse(*key, **flags, device=dev)
-
-            def run(*args, **kw):
-                args, kw = _device.state_from_numpy((args, kw), dev)
-                return module(*args, **kw)
-            return run
-
-        names = dict(vars(_ref), recon_h264_sparse_jit=program,
+        names = dict(vars(_ref),
+                     recon_h264_sparse_jit=hwdevice.program_factory(
+                         _device.recon_h264_sparse, dev),
                      zero_refs_h264=functools.partial(
                          _device.zero_refs_h264, device=dev),
                      Frame=Frame)

@@ -30,7 +30,6 @@ implicit weighted prediction, I_PCM, the PAFF cross-parity chroma offset
 from __future__ import annotations
 
 import functools
-from typing import Any
 
 import numpy as np
 import torch
@@ -50,25 +49,6 @@ from libav_tpu_torch.ops.mc import EDGE, pad_plane
 def _unported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to libav_tpu_torch yet (ROADMAP.md: {item})")
-
-
-def state_from_numpy(state: Any, device: torch.device) -> Any:
-    """The JAX program's host state -> the port's tensors on device.
-
-    state is any nesting of tuples, lists and dicts holding numpy arrays
-    (the decoder's per-frame arguments, the DPB's padded reference planes
-    as the JAX program returns them), tensors or None. Arrays are copied
-    (the host may reuse its buffers for the next frame) and keep their
-    dtype; the program widens and converts indices itself."""
-    if state is None:
-        return None
-    if isinstance(state, torch.Tensor):
-        return state.to(device)
-    if isinstance(state, dict):
-        return {k: state_from_numpy(v, device) for k, v in state.items()}
-    if isinstance(state, (tuple, list)):
-        return type(state)(state_from_numpy(v, device) for v in state)
-    return torch.tensor(np.asarray(state), device=device)
 
 
 def _place(blocks: torch.Tensor, n: int) -> torch.Tensor:

@@ -21,7 +21,6 @@ for anything else: there is no fallback and no size threshold.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
@@ -29,6 +28,8 @@ import torch
 
 from libav_tpu.codecs.h264.device import CHROMA_QP
 from libav_tpu.ops.h264deblock import ALPHA, BETA, TC0
+from libav_tpu_torch._kernels import (check_int32, library, ptr,
+                                      raise_on, stream)
 
 _N_QP = 52
 
@@ -112,30 +113,6 @@ def filter_edge_qp(lines: torch.Tensor, qp: torch.Tensor, bs: torch.Tensor,
     return torch.stack([p3, op2, op1, op0, oq0, oq1, oq2, q3], dim=1)
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _check(name: str, t: torch.Tensor, device: torch.device,
-           shape=None) -> None:
-    if t.device != device or t.dtype != torch.int32 or \
-            not t.is_contiguous():
-        raise ValueError(f"{name}: need a contiguous int32 tensor on "
-                         f"{device}, got {t.dtype} on {t.device}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: need shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
-
-
 def h264_edge_filter_lines(lines: torch.Tensor, qp: torch.Tensor,
                            bs: torch.Tensor, chroma: bool = False,
                            a_off: int = 0, b_off: int = 0) -> torch.Tensor:
@@ -148,19 +125,18 @@ def h264_edge_filter_lines(lines: torch.Tensor, qp: torch.Tensor,
                          f"{lines.device}")
     dev = lines.device
     n = lines.shape[0]
-    _check("lines", lines, dev, (n, 8))
-    _check("qp", qp, dev, (n,))
-    _check("bs", bs, dev, (n,))
+    check_int32("lines", lines, dev, (n, 8))
+    check_int32("qp", qp, dev, (n,))
+    check_int32("bs", bs, dev, (n,))
     out = torch.empty_like(lines)
     if n == 0:
         return out
-    from libav_tpu_torch import _kernels
-    lib = _kernels.library()
+    lib = library()
     with torch.cuda.device(dev):
         err = lib.h264_edge_filter_lines(
-            _ptr(lines), _ptr(out), _ptr(qp), _ptr(bs), n, a_off, b_off,
-            int(chroma), _ptr(edge_table(dev)), _stream(dev))
-    _raise_on(err, "h264_edge_filter_lines")
+            ptr(lines), ptr(out), ptr(qp), ptr(bs), n, a_off, b_off,
+            int(chroma), ptr(edge_table(dev)), stream(dev))
+    raise_on(err, "h264_edge_filter_lines")
     h264_edge_filter_lines.launches += 1
     return out
 
@@ -305,20 +281,19 @@ def h264_deblock_wave(ypad, upad, vpad, grids, wave: int, mb_w: int,
     if ypad.device.type != "cuda":
         raise ValueError(f"h264_deblock_wave: no kernel for {ypad.device}")
     dev = ypad.device
-    _check("ypad", ypad, dev, (16 * mb_h + 4, 16 * mb_w + 4))
-    _check("upad", upad, dev, (8 * mb_h + 4, 8 * mb_w + 4))
-    _check("vpad", vpad, dev, (8 * mb_h + 4, 8 * mb_w + 4))
-    _check("grids", grids, dev, (8, 4 * mb_h, 4 * mb_w))
+    check_int32("ypad", ypad, dev, (16 * mb_h + 4, 16 * mb_w + 4))
+    check_int32("upad", upad, dev, (8 * mb_h + 4, 8 * mb_w + 4))
+    check_int32("vpad", vpad, dev, (8 * mb_h + 4, 8 * mb_w + 4))
+    check_int32("grids", grids, dev, (8, 4 * mb_h, 4 * mb_w))
     if not 0 <= wave < n_waves(mb_w, mb_h):
         raise ValueError(f"wave {wave} out of range")
-    from libav_tpu_torch import _kernels
-    lib = _kernels.library()
+    lib = library()
     with torch.cuda.device(dev):
         err = lib.h264_deblock_wave(
-            _ptr(ypad), _ptr(upad), _ptr(vpad), _ptr(grids), mb_w, mb_h,
+            ptr(ypad), ptr(upad), ptr(vpad), ptr(grids), mb_w, mb_h,
             wave, wave_slots(mb_w, mb_h), a_off, b_off,
-            _ptr(edge_table(dev)), _stream(dev))
-    _raise_on(err, "h264_deblock_wave")
+            ptr(edge_table(dev)), stream(dev))
+    raise_on(err, "h264_deblock_wave")
     h264_deblock_wave.launches += 1
 
 

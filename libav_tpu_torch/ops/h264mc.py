@@ -5,9 +5,7 @@ ISO 14496-10 §8.4.2.2).
 One gather of each block's source patch from the edge-padded reference,
 then all sixteen quarter-pel phases computed and selected per block, as
 in the JAX package. The patch origin follows `lax.dynamic_slice`'s start
-index rule (a negative start counts from the end of the axis, then the
-window is clamped into range), so a motion vector that points further
-than EDGE outside the frame reads the same pixels in both packages.
+index rule (`ops/mc.py` gather_patches).
 """
 
 from __future__ import annotations
@@ -16,30 +14,9 @@ from typing import Optional
 
 import torch
 
-from libav_tpu_torch.ops.mc import EDGE
+from libav_tpu_torch.ops.mc import EDGE, gather_patches
 
 _W6 = (1, -5, 20, 20, -5, 1)
-
-
-def _start(i: torch.Tensor, dim: int, n: int) -> torch.Tensor:
-    """lax.dynamic_slice's start of an n-wide window on an axis of dim."""
-    i = i.long()
-    return torch.where(i < 0, i + dim, i).clamp(0, dim - n)
-
-
-def _gather_patches(padded: torch.Tensor, y0: torch.Tensor,
-                    x0: torch.Tensor, n: int,
-                    ridx: Optional[torch.Tensor]) -> torch.Tensor:
-    """(B, n, n) int32 windows of padded (Hp, Wp) or (R, Hp, Wp) at
-    (y0, x0) [and reference ridx]."""
-    hp, wp = padded.shape[-2:]
-    r = torch.arange(n, device=padded.device)
-    rows = (_start(y0, hp, n)[:, None] + r)[:, :, None]
-    cols = (_start(x0, wp, n)[:, None] + r)[:, None, :]
-    if ridx is None:
-        return padded[rows, cols].to(torch.int32)
-    ri = _start(ridx, padded.shape[0], 1)[:, None, None]
-    return padded[ri, rows, cols].to(torch.int32)
 
 
 def _conv6(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -67,7 +44,7 @@ def qpel_mc(padded: torch.Tensor, xs, ys, mvx, mvy, size: int,
     y0 = ys + (mvy >> 2) + EDGE - 2
     fx = (mvx & 3)[:, None, None]
     fy = (mvy & 3)[:, None, None]
-    P = _gather_patches(padded, y0, x0, S + 6, ridx)
+    P = gather_patches(padded, y0, x0, S + 6, ridx)
 
     G = P[:, 2:S + 3, 2:S + 3]
     b1 = _conv6(P, 2)                            # (B, S+6, S+1)
@@ -116,7 +93,7 @@ def chroma_mc(padded: torch.Tensor, xs, ys, mvx, mvy, size: int,
     y0 = ys + (mvy >> 3) + EDGE
     dx = (mvx & 7)[:, None, None]
     dy = (mvy & 7)[:, None, None]
-    P = _gather_patches(padded, y0, x0, S + 1, ridx)
+    P = gather_patches(padded, y0, x0, S + 1, ridx)
     A = P[:, :S, :S]
     B_ = P[:, :S, 1:S + 1]
     C = P[:, 1:S + 1, :S]

@@ -19,6 +19,7 @@ from libav_tpu.ops import h264mc as jmc
 from libav_tpu.ops import h264pred as jpred
 from libav_tpu.ops import h264transform as jtr
 from libav_tpu.ops.mc import EDGE
+from libav_tpu_torch.avutil.hwdevice import state_from_numpy
 from libav_tpu_torch.codecs.h264 import device as tdev
 from libav_tpu_torch.ops import h264deblock as tdb
 from libav_tpu_torch.ops import h264mc as tmc
@@ -367,7 +368,7 @@ class TestRecon:
             mb_w, mb_h, **key)(**args)
         got_planes, got_padded = tdev.recon_h264_sparse(
             mb_w, mb_h, **key, device=CPU)(
-                **tdev.state_from_numpy(args, CPU))
+                **state_from_numpy(args, CPU))
         for g, w in zip(got_planes + got_padded, want_planes + want_padded):
             assert g.dtype == torch.uint8
             _eq(g, w)

@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
 versions, on a CUDA card (the plain versions are held against the JAX
-package on the CPU in test_torch_h264_ops.py, which imports this module's
-input makers).
+package on the CPU in test_torch_h264_ops.py and test_torch_mpeg_ops.py,
+which import this module's input makers).
 
 This file imports no jax, so it runs on a host without it:
 
@@ -15,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+from libav_tpu_torch import testdata
 from libav_tpu_torch.ops import h264deblock as tdb
+from libav_tpu_torch.ops import idct as tidct
 
 
 @pytest.fixture(autouse=True)
@@ -89,6 +91,9 @@ def test_wrappers_refuse_devices_without_a_kernel():
     y = torch.empty((20, 20), dtype=torch.int32, device=meta)
     with pytest.raises(ValueError, match="no kernel"):
         tdb.h264_deblock_wave(y, y, y, y, 0, 1, 1, 0, 0)
+    blocks = torch.empty((4, 8, 8), dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        tidct.idct8x8_int(blocks)
 
 
 _needs_cuda = [pytest.mark.cuda,
@@ -128,3 +133,13 @@ class TestKernelsOnCard:
         want = fn(*args, **kw, step=tdb.deblock_wave_plain)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+    @pytest.mark.parametrize("B", [1, 7, 3072, 48960])
+    def test_idct8x8_int(self, B):
+        dev = torch.device("cuda", 0)
+        x = _t(testdata.idct_blocks(82 + B, B)).to(dev)
+        before = tidct.idct8x8_int.launches
+        got = tidct.idct8x8_int(x)
+        torch.cuda.synchronize()
+        assert tidct.idct8x8_int.launches == before + 1
+        assert torch.equal(got, tidct.idct8x8_int_plain(x))
