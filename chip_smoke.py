@@ -33,16 +33,46 @@ Phases, in order; any failure exits nonzero and prints no result:
      picture, prints per-picture recon ms by type, then times a warm
      second decode of each and profiles a third (device busy share);
      then runs the frame-picture interlace tools, which those streams do
-     not use, on random 1080p inputs on the card and on the CPU, exact.
+     not use, on random 1080p inputs on the card and on the CPU, exact;
+  7. P1 and P2 (the timing tool's kernels in the coefficient-major and
+     position-major layouts): the tool's path, kernel_probe at its
+     defaults (48,896 blocks, 49,152 lines), times each plain version,
+     production kernel (K2, K1) and probe-layout kernel by CUDA events and
+     checks all three bit-exact against the numpy reference; then P1 and
+     P2 against their plain versions on the card, exact, at the defaults
+     and at B = 1 and 127 (P1) or 1 and 513 (P2);
+  8. MJPEG: decodes the committed 1080p stream (4 JPEGs) with the port's
+     MJPEGDecoder on the card, one frame at a time and as one batch
+     (decode_jpeg_batch); every frame's adler32 and md5 equal the golden,
+     with K2 launched 3 times per frame, and 3 times for the batch;
+  9. the CLI: writes the four committed streams as bench.h264, ipbb.m2v,
+     fld.m2v and frames.mjpeg and runs the port's avconv on each with
+     `-benchmark -f framecrc`: each output byte-identical to the JAX CLI's
+     committed framecrc, with K1's wave kernel launched 8 x 254 times for
+     the H.264 input and K2 once per coded MPEG-2 picture and 3 times per
+     JPEG; prints the CLI's fps beside the direct decode's; then `-prof
+     DIR` on bench.h264 and ipbb.m2v (each torch.profiler trace names its
+     kernel, the H.264 timer report holds h264.entropy) and avprobe
+     `-show_frames` on ipbb.m2v (its frame section equals the JAX
+     avprobe's: 7 frames, I B B P B B P).
 The last two lines are the kernels' JSON record and the result JSON.
 """
 
+import contextlib
+import io
 import json
+import os
+import re
+import shutil
 import sys
+import tempfile
 import time
 
 # one x+2y deblock wave per launch: 120 + 2 * (68 - 1) at 1080p
 WAVES_1080P = 254
+# stream -> the kernel its `avconv -prof` trace must name
+PROF_KERNELS = {"h264_1080p_ipbb_cabac": "deblock_wave_kernel",
+                "mpeg2_1080p_ipbb": "idct8x8_kernel"}
 
 
 def log(msg):
@@ -267,7 +297,7 @@ def phase_decode(dev, card):
         f"ms/frame), host entropy {entropy_ms:.1f} ms/frame over "
         f"{n1 - n0} access units, native CABAC "
         f"{h264dec.native_cabac_available()} [{card}]")
-    return launches
+    return launches, fps
 
 
 def phase_idct(dev):
@@ -346,8 +376,9 @@ def phase_mpeg2(dev, card):
     from libav_tpu_torch import testdata
     from libav_tpu_torch.ops import idct
     launches = 0
+    fps = {}
     for name, pictures in testdata.MPEG2_SMOKE.items():
-        path, golden = testdata.mpeg2_paths(name)
+        path, golden = testdata.stream_paths(name)
         datas = testdata.read_packets(path)
         gold = testdata.load_golden(golden)
         nframes = len(gold["frames"])
@@ -367,6 +398,7 @@ def phase_mpeg2(dev, card):
 
         host, warm_s, _, entropy_s = decode_mpeg2(dev, datas)
         check_golden(host, gold, f"{name} second decode")
+        fps[name] = nframes / warm_s
         log(f"phase 6 {name} warm decode: {nframes / warm_s:.3f} fps "
             f"({1e3 * warm_s / nframes:.1f} ms/frame), host slice entropy "
             f"{1e3 * entropy_s / nframes:.1f} ms/frame, other "
@@ -375,7 +407,7 @@ def phase_mpeg2(dev, card):
         log(f"phase 6 {name} profiled decode: {ops} device ops, "
             f"{busy_ms:.3f} ms on the device in {wall_ms:.1f} ms of wall "
             f"(device busy {100 * busy_ms / wall_ms:.2f}%)")
-    return launches
+    return launches, fps
 
 
 def phase_interlace(dev):
@@ -400,6 +432,249 @@ def phase_interlace(dev):
                                  "the CPU")
     log("phase 6 interlace tools: 1920x1088 field MC + field DCT + dual "
         "prime recon identical on the card and the CPU")
+
+
+def phase_probe(dev, card):
+    """P1 and P2 through their tool, then against their plain versions."""
+    import numpy as np
+    import torch
+    from libav_tpu_torch import testdata
+    from libav_tpu_torch.ops import h264deblock as db
+    from libav_tpu_torch.ops import idct
+    from libav_tpu_torch.tools import kernel_probe
+    out = {}
+    for name, fn, kernel in (("idct", kernel_probe.probe_idct,
+                              idct.idct8x8_int_cm),
+                             ("deblock", kernel_probe.probe_deblock,
+                              db.h264_edge_filter_pm)):
+        kernel.launches = 0
+        times = fn(device=dev)
+        out[name] = {"launches": kernel.launches, "times": times}
+        for t in times.values():
+            if not t.exact:
+                raise AssertionError(f"kernel_probe: {t.label} is not "
+                                     "bit-exact to the numpy reference")
+            log(f"phase 7 kernel_probe {name}: {t.label} {t.ms:.4f} ms/call "
+                f"(median of 50, CUDA events), {t.device_ms:.4f} ms on the "
+                f"device (torch.profiler), bit-exact [{card}]")
+
+    # P1 on the five input classes of K2's checks at odd sizes, and on
+    # the probe's blocks; P2 with qp over the whole table at odd sizes
+    idct_cases = [testdata.idct_blocks(90 + B, B) for B in (1, 127)] + \
+        [kernel_probe.idct_inputs(kernel_probe.IDCT_BATCH)]
+    out["idct"]["max_abs_err"] = 0
+    for blocks in idct_cases:
+        B = len(blocks)
+        xT = torch.as_tensor(blocks.reshape(B, 64).T.copy()).to(dev)
+        got, want = idct.idct8x8_int_cm(xT), idct.idct8x8_int_cm_plain(xT)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"idct8x8_int_cm differs from its plain "
+                                 f"version at B = {B}")
+        out["idct"]["max_abs_err"] = max(out["idct"]["max_abs_err"],
+                                         int((got - want).abs().max()))
+    out["deblock"]["max_abs_err"] = 0
+    for B in (1, 513, kernel_probe.DEBLOCK_BATCH):
+        lines, qp, bs = kernel_probe.deblock_inputs(B)
+        if B <= 513:
+            qp = np.random.default_rng(B).integers(0, 52, B).astype(np.int32)
+        xT, qp, bs = (torch.as_tensor(a).to(dev)
+                      for a in (lines.T.copy(), qp, bs))
+        got = db.h264_edge_filter_pm(xT, qp, bs)
+        want = db.edge_filter_pm_plain(xT, qp, bs)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"h264_edge_filter_pm differs from its "
+                                 f"plain version at B = {B}")
+        out["deblock"]["max_abs_err"] = max(out["deblock"]["max_abs_err"],
+                                            int((got - want).abs().max()))
+    log(f"phase 7 P1 exact against its plain version at B = 1, 127, "
+        f"{kernel_probe.IDCT_BATCH}; P2 at B = 1, 513, "
+        f"{kernel_probe.DEBLOCK_BATCH}")
+    return out
+
+
+def phase_mjpeg(dev, card):
+    """The committed MJPEG stream one frame at a time, then as a batch."""
+    import torch
+    from libav_tpu_torch import testdata
+    from libav_tpu_torch.avutil.frame import Packet
+    from libav_tpu_torch.codecs.mjpeg import MJPEGDecoder
+    from libav_tpu_torch.ops import idct
+    path, golden = testdata.stream_paths(testdata.MJPEG_SMOKE)
+    datas = testdata.read_packets(path)
+    gold = testdata.load_golden(golden)
+    nframes = len(gold["frames"])
+
+    recon_ms = []
+
+    def run(batch, time_recon=False):
+        dec = MJPEGDecoder(device=dev)
+        if time_recon:
+            inner = dec._reconstruct
+
+            def timed(*args):
+                t0 = time.perf_counter()
+                f = inner(*args)
+                torch.cuda.synchronize(dev)
+                recon_ms.append(1e3 * (time.perf_counter() - t0))
+                return f
+            dec._reconstruct = timed
+        idct.idct8x8_int.launches = 0
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if batch:
+            frames = dec.open().decode_jpeg_batch(datas)
+        else:
+            frames = dec.decode_all(Packet(data=d, pts=i)
+                                    for i, d in enumerate(datas))
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        launches = idct.idct8x8_int.launches
+        dec.close()
+        check_golden([f.to_host().planes for f in frames], gold,
+                     f"mjpeg {'batch' if batch else 'frames'}")
+        return launches, seconds
+
+    launches, cold_s = run(False, time_recon=True)
+    if launches != 3 * nframes:
+        raise AssertionError(f"mjpeg: idct8x8_int launched {launches} "
+                             f"times, expected 3 x {nframes}")
+    _, warm_s = run(False)
+    batch_launches, batch_s = run(True)
+    if batch_launches != 3:
+        raise AssertionError(f"mjpeg batch: idct8x8_int launched "
+                             f"{batch_launches} times, expected 3")
+    fps = nframes / warm_s
+    log(f"phase 8 MJPEG 1920x1080: {nframes} frames adler32+md5 identical to "
+        f"the golden, {launches} K2 launches, {cold_s:.3f} s first decode "
+        f"(recon ms per frame, synchronised: "
+        f"{', '.join(f'{ms:.2f}' for ms in recon_ms)}); "
+        f"warm {fps:.3f} fps; decode_jpeg_batch of all {nframes}: golden, "
+        f"{batch_launches} K2 launches, {batch_s:.3f} s [{card}]")
+    return launches, fps
+
+
+def run_cli(tool, argv, dev):
+    """tool.main(argv, device=dev) -> (stdout, stderr, seconds); raises
+    unless it returns 0."""
+    # the muxers' I/O looks for sys.stdout.buffer
+    out, err = io.TextIOWrapper(io.BytesIO(), encoding="utf-8"), \
+        io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = tool.main(argv, device=dev)
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{tool.__name__} {' '.join(argv)} returned "
+                             f"{rc}: {err.getvalue()[-2000:]}")
+    out.flush()
+    return out.buffer.getvalue().decode(), err.getvalue(), seconds
+
+
+def phase_cli(dev, card, direct_fps):
+    """The port's avconv and avprobe on the committed streams as files."""
+    from libav_tpu_torch import testdata
+    from libav_tpu_torch.avutil import timer
+    from libav_tpu_torch.ops import h264deblock as db
+    from libav_tpu_torch.ops import idct
+    from libav_tpu_torch.tools import avconv, avprobe
+    # K2 launches per stream: one per coded MPEG-2 picture, 3 per JPEG
+    k2_expected = dict(testdata.MPEG2_SMOKE, h264_1080p_ipbb_cabac=0)
+    work = tempfile.mkdtemp()
+    try:
+        inputs = {name: testdata.write_cli_input(name, work)
+                  for name in testdata.CLI_INPUTS}
+
+        def framecrc(name, *opts):
+            out = os.path.join(work, name + ".framecrc")
+            db.h264_deblock_wave.launches = 0
+            idct.idct8x8_int.launches = 0
+            _, err, seconds = run_cli(avconv, [*opts, "-i", inputs[name],
+                                               "-f", "framecrc", out], dev)
+            with open(out, "rb") as f, \
+                    open(testdata.framecrc_path(name), "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"avconv {name}: framecrc differs "
+                                         f"from the JAX CLI's")
+            waves = db.h264_deblock_wave.launches
+            k2 = idct.idct8x8_int.launches
+            nframes = len(testdata.load_golden(
+                testdata.stream_paths(name)[1])["frames"])
+            want_waves = (nframes * WAVES_1080P
+                          if name == "h264_1080p_ipbb_cabac" else 0)
+            want_k2 = k2_expected.get(name, 3 * nframes)
+            if (waves, k2) != (want_waves, want_k2):
+                raise AssertionError(
+                    f"avconv {name}: {waves} wave and {k2} K2 launches, "
+                    f"expected {want_waves} and {want_k2}")
+            return err, seconds, waves, k2
+
+        for name in testdata.CLI_INPUTS:
+            err, seconds, waves, k2 = framecrc(name, "-benchmark")
+            fps = float(re.search(r"fps=([0-9.]+)", err).group(1))
+            log(f"phase 9 avconv -benchmark {os.path.basename(inputs[name])}"
+                f" -f framecrc: byte-identical to the JAX CLI's framecrc, "
+                f"{waves} K1 wave and {k2} K2 launches; CLI {fps} fps "
+                f"({seconds:.2f} s wall) against the direct decode's "
+                f"{direct_fps[name]:.3f} fps [{card}]")
+
+        for name, kernel in PROF_KERNELS.items():
+            prof = os.path.join(work, "prof_" + name)
+            err, seconds, _, _ = framecrc(name, "-prof", prof)
+            trace = os.path.join(prof, timer.TRACE_FILE)
+            if not os.path.exists(trace):
+                raise AssertionError(f"-prof wrote no trace for {name}")
+            with open(trace, errors="replace") as f:
+                named = any(kernel in chunk
+                            for chunk in iter(lambda: f.read(1 << 24), ""))
+            if not named:
+                raise AssertionError(f"-prof trace of {name} names no "
+                                     f"{kernel}")
+            if name.startswith("h264") and "h264.entropy" not in err:
+                raise AssertionError("-prof report holds no h264.entropy")
+            report = [ln for ln in err.splitlines() if " us avg in " in ln]
+            log(f"phase 9 avconv -prof {os.path.basename(inputs[name])}: "
+                f"framecrc identical, trace {os.path.getsize(trace)} bytes "
+                f"naming {kernel}, {seconds:.2f} s under the profiler; "
+                f"timer report: {'; '.join(r.strip() for r in report)}")
+            shutil.rmtree(prof)
+
+        name = "mpeg2_1080p_ipbb"
+        out, _, seconds = run_cli(avprobe, ["-show_frames", inputs[name]],
+                                  dev)
+        got = testdata.frames_section(out)
+        with open(testdata.show_frames_path(name)) as f:
+            if got != f.read():
+                raise AssertionError("avprobe -show_frames differs from the "
+                                     "JAX avprobe's")
+        types = re.findall(r"pict_type=(\w)", got)
+        log(f"phase 9 avprobe -show_frames ipbb.m2v: identical to the JAX "
+            f"avprobe's, {len(types)} frames {' '.join(types)}, "
+            f"{seconds:.2f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def probe_record(name, source, line, what, probe):
+    """The kernels-line entry of P1 or P2 from phase 7's results."""
+    times = probe["times"]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"libav_tpu_torch/csrc/{source}",
+        "replaces": f"libav_tpu/tools/pallas_probe.py:{line}",
+        "launches": probe["launches"],
+        "max_abs_err": probe["max_abs_err"],
+        "ms": times["probe"].ms,
+        "plain_ms": times["plain"].ms,
+        "device_ms": times["probe"].device_ms,
+        "production_ms": times["production"].ms,
+        "production_device_ms": times["production"].device_ms,
+        "ms_is": f"{what} in kernel_probe: median per call by CUDA events; "
+                 f"device_ms by torch.profiler; production_* is "
+                 f"{times['production'].label} on the same inputs",
+    }
 
 
 def main():
@@ -433,10 +708,14 @@ def main():
 
     lines = phase_lines(dev)
     deblock = phase_deblock(dev)
-    launches = phase_decode(dev, card)
+    launches, h264_fps = phase_decode(dev, card)
     k2 = phase_idct(dev)
-    k2_launches = phase_mpeg2(dev, card)
+    k2_launches, mpeg2_fps = phase_mpeg2(dev, card)
     phase_interlace(dev)
+    probe = phase_probe(dev, card)
+    _, mjpeg_fps = phase_mjpeg(dev, card)
+    phase_cli(dev, card, {"h264_1080p_ipbb_cabac": h264_fps, **mpeg2_fps,
+                          "mjpeg_1080p": mjpeg_fps})
 
     ms, plain_ms = deblock["part=True"]
     record = {"kernels": [{
@@ -464,7 +743,11 @@ def main():
                  "to back; device_ms is the kernel alone, by the profiler; "
                  f"at 24,480 (a field): {k2[24480][0]} ms, device "
                  f"{k2[24480][2]} ms, plain {k2[24480][1]} ms",
-    }], "card": card}
+    }, probe_record("mpv_idct8x8_cm", "mpv_idct.cu", 30,
+                    "48,896 blocks as (64, B)", probe["idct"]),
+       probe_record("h264_edge_filter_pm", "h264_deblock.cu", 114,
+                    "49,152 lines as (8, B), qp 30", probe["deblock"])],
+        "card": card}
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": info}))
     return 0

@@ -34,10 +34,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # lines, out, qp, bs, n, a_off, b_off, chroma, tab, stream
     "h264_edge_filter_lines": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    # xT, out, qp, bs, n, tab, stream
+    "h264_edge_filter_pm": (_P, _P, _P, _P, _I, _P, _P),
     # y, u, v, grids, mb_w, mb_h, wave, slots, a_off, b_off, tab, stream
     "h264_deblock_wave": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     # in, out, n, consts (host), stream
     "mpv_idct8x8": (_P, _P, _I, _P, _P),
+    "mpv_idct8x8_cm": (_P, _P, _I, _P, _P),
 }
 
 

@@ -14,12 +14,12 @@ CUDA call.
 from __future__ import annotations
 
 import functools
-import types
 from typing import Tuple
 
 from libav_tpu.avutil import timer
 from libav_tpu.codecs.h264 import dec as _ref
 from libav_tpu.native import h264_cabac_host
+from libav_tpu_torch import hostcode
 from libav_tpu_torch.avutil import hwdevice
 from libav_tpu_torch.avutil.frame import Frame
 from libav_tpu_torch.codecs import register_codec
@@ -42,9 +42,8 @@ class H264Decoder(_ref.H264Decoder):
                      zero_refs_h264=functools.partial(
                          _device.zero_refs_h264, device=dev),
                      Frame=Frame)
-        parent = _ref.H264Decoder._reconstruct
-        self._reconstruct_on_device = types.FunctionType(
-            parent.__code__, names, parent.__name__)
+        self._reconstruct_on_device = hostcode.rebind(
+            _ref.H264Decoder._reconstruct, names)
 
     def _reconstruct(self, fd, slice_info) -> Frame:
         return self._reconstruct_on_device(self, fd, slice_info)

@@ -8,11 +8,12 @@ methods reach the device: `_reconstruct` (frame pictures),
 `_reconstruct_field` (field pictures) and `_finish_field` (the weave of a
 field pair). Each imports its programs inside the method body
 (`from libav_tpu.codecs.mpegvideo import ...`), so rebinding the
-method's globals alone would not reach them. Each is rebound here with
-globals whose `__import__` answers that one module with the port's
-programs on the decoder's device, and whose `Frame` and `_zero_refs` are
-the port's; every other name and import is the parent's. Both packages
-run the same host code, and no JAX program can be reached from here.
+method's globals alone would not reach them. Each is rebound here
+(`hostcode.rebind`) with globals whose `__import__` answers that one
+module's names with the port's programs on the decoder's device, and
+whose `Frame` and `_zero_refs` are the port's; every other name and
+import is the parent's. Both packages run the same host code, and no JAX
+program can be reached from here.
 
 The numpy inputs go to the device synchronously (state_from_numpy) on
 the thread that decodes.
@@ -20,11 +21,11 @@ the thread that decodes.
 
 from __future__ import annotations
 
-import builtins
 import functools
 import types
 
 from libav_tpu.codecs.mpeg12 import dec as _ref
+from libav_tpu_torch import hostcode
 from libav_tpu_torch.avutil import hwdevice
 from libav_tpu_torch.avutil.frame import Frame
 from libav_tpu_torch.codecs import mpegvideo, register_codec
@@ -57,21 +58,14 @@ class MPEG1Decoder(_ref.MPEG1Decoder):
         self.device = dev = hwdevice.device(device)
         programs = device_programs(dev)
 
-        def import_(name, globals=None, locals=None, fromlist=(), level=0):
-            if name == _JAX_PROGRAMS and level == 0:
-                return programs
-            return builtins.__import__(name, globals, locals, fromlist,
-                                       level)
-
         names = dict(vars(_ref), Frame=Frame,
                      _zero_refs=lambda seq: programs.zero_pad_refs(
                          seq.mb_width, seq.mb_height),
-                     __builtins__=dict(vars(builtins), __import__=import_))
+                     __builtins__=hostcode.host_builtins(
+                         replace={_JAX_PROGRAMS: vars(programs)}))
         for name in _DEVICE_METHODS:
-            parent = getattr(_ref.MPEG1Decoder, name)
-            fn = types.FunctionType(parent.__code__, names, parent.__name__,
-                                    parent.__defaults__)
-            setattr(self, name, types.MethodType(fn, self))
+            setattr(self, name, hostcode.rebind(
+                getattr(_ref.MPEG1Decoder, name), names, self))
 
 
 @register_codec

@@ -73,10 +73,8 @@ class _Picture(nn.Module):
         super().__init__()
         self.mb_w, self.mb_h, self.nmb = mb_w, mb_h, mb_w * mb_h
         self.quant_kind = quant_kind
-        scan = alternate_scan() if alt_scan else zigzag_scan()
-        pos = np.empty(64, np.int64)              # raster -> scan position
-        pos[np.asarray(scan)] = np.arange(64)
-        self.register_buffer("pos", torch.as_tensor(pos))
+        self.register_buffer("pos", quant_ops.raster_positions(
+            alternate_scan() if alt_scan else zigzag_scan()))
         mbx = np.arange(self.nmb) % mb_w
         mby = np.arange(self.nmb) // mb_w
         for name, a in (("x16", mbx * 16), ("y16", mby * 16),
@@ -95,8 +93,8 @@ class _Picture(nn.Module):
         else:
             deq_i = quant_ops.mpeg2_dequant_intra(c, qs, intra_q)
             deq_p = quant_ops.mpeg2_dequant_inter(c, qs, inter_q)
-        blocks = torch.where(intra_b, deq_i, deq_p)[:, self.pos] \
-            .reshape(n6, 8, 8)
+        blocks = quant_ops.dezigzag(torch.where(intra_b, deq_i, deq_p),
+                                    self.pos)
         if self.quant_kind == "mpeg2":
             blocks = quant_ops.mpeg2_mismatch_control(blocks)
         return idct8x8_int(blocks.contiguous()).reshape(self.nmb, 6, 8, 8)

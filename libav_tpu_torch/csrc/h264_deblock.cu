@@ -32,6 +32,18 @@
 // rounds; fusing waves (a persistent kernel or a CUDA graph) is later
 // work.
 //
+// A third entry point, h264_edge_filter_pm, is kernel P2: the luma filter
+// in the position-major layout, (8, B) int32, row k holding pixel slot k
+// (p3..q3) of every line, with alpha and beta both at clip(qp, 0, 51), no
+// offsets. It replaces the timing tool's Pallas kernel
+// libav_tpu/tools/pallas_probe.py:_build_deblock, which used that layout
+// over 512 lanes (so B % 512 == 0) and looked up alpha/beta/tc0 in XLA
+// around the call. Here one thread filters one line: for each row,
+// neighbouring threads read neighbouring lines, so every load and store of
+// a warp is one 128-byte line, and the lookups run in the kernel from the
+// packed table. Any B >= 1; the last CUDA block is masked. Bound by bytes
+// (40 B in, 32 B out per line) and by the launch at the probe's sizes.
+//
 // The alpha/beta/tc0 tables arrive as one packed int32 array
 // [ALPHA(52) | BETA(52) | TC0(52x3)] built from the JAX package's tables.
 
@@ -108,6 +120,22 @@ __global__ void edge_filter_lines_kernel(const int* __restrict__ lines,
   filter_line(v + 4, 1, qp[i], bs[i], a_off, b_off, chroma != 0, tab);
 #pragma unroll
   for (int k = 0; k < 8; ++k) out[8 * i + k] = v[k];
+}
+
+__global__ void edge_filter_pm_kernel(const int* __restrict__ xT,
+                                      int* __restrict__ out,
+                                      const int* __restrict__ qp,
+                                      const int* __restrict__ bs, int n,
+                                      const int* __restrict__ tab) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const long stride = n;                          // one pixel slot
+  int v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = xT[k * stride + i];
+  filter_line(v + 4, 1, qp[i], bs[i], 0, 0, false, tab);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) out[k * stride + i] = v[k];
 }
 
 constexpr int kLumaPatch = 20;    // MB + 4 rows/cols above and left
@@ -206,6 +234,16 @@ int h264_edge_filter_lines(const int* lines, int* out, const int* qp,
   edge_filter_lines_kernel<<<(n + threads - 1) / threads, threads, 0,
                              stream>>>(lines, out, qp, bs, n, a_off, b_off,
                                        chroma, tab);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// P2: xT and out are (8, n) int32, position-major; luma, no offsets.
+int h264_edge_filter_pm(const int* xT, int* out, const int* qp,
+                        const int* bs, int n, const int* tab,
+                        cudaStream_t stream) {
+  const int threads = 256;
+  edge_filter_pm_kernel<<<(n + threads - 1) / threads, threads, 0,
+                          stream>>>(xT, out, qp, bs, n, tab);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -35,6 +35,19 @@
 // vectors. The 9-int row pitch keeps both shared-memory passes free of
 // bank conflicts. A block's 8 lanes sit in one warp and enter or leave
 // together, so the ragged last CUDA block needs no barrier across warps.
+//
+// The second entry point, mpv_idct8x8_cm, is kernel P1: the same function
+// in the coefficient-major layout, (64, B) int32, row 8r+c holding
+// coefficient (r, c) of every block. It replaces the timing tool's Pallas
+// kernel libav_tpu/tools/pallas_probe.py:_build, which used that layout so
+// that each butterfly step was one multiply-add over 128 lanes (and so
+// needed B % 128 == 0). Here one thread owns one 8x8 block: for each
+// coefficient row, neighbouring threads read neighbouring blocks, so
+// every load and store of a warp is one 128-byte line. The thread reads
+// one row of 8 coefficients at a time and keeps the 64 int16-range row
+// results in registers for the column pass (no shared memory); ptxas -v
+// reports its registers and spills. Any B >= 1; the last CUDA block is
+// masked. Bound, as for K2, by bytes: 512 B per block in and out.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -109,6 +122,61 @@ __global__ void __launch_bounds__(kThreads)
   out[blk * 16 + 2 * r + 1] = make_int4(row[4], row[5], row[6], row[7]);
 }
 
+constexpr int kCmThreads = 128;
+
+__global__ void __launch_bounds__(kCmThreads)
+    idct8x8_cm_kernel(const int* __restrict__ in, int* __restrict__ out,
+                      int n, const IdctConsts c) {
+  const long blk = static_cast<long>(blockIdx.x) * kCmThreads + threadIdx.x;
+  if (blk >= n) return;
+  const int* src = in + blk;
+  int* dst = out + blk;
+  const long stride = n;                          // one coefficient row
+  const uint32_t row_round = 1u << (c.row_shift - 1);
+  int y[64];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    int x[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[j] = wrap16(src[(8 * r + j) * stride]);
+    const bool dc_only =
+        (x[1] | x[2] | x[3] | x[4] | x[5] | x[6] | x[7]) == 0;
+    const int dc_row =
+        wrap16(static_cast<int>(static_cast<uint32_t>(x[0]) << 3));
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      uint32_t acc = row_round;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        acc += static_cast<uint32_t>(x[j]) *
+               static_cast<uint32_t>(c.m[k * 8 + j]);
+      y[8 * r + k] =
+          wrap16(dc_only ? dc_row : static_cast<int>(acc) >> c.row_shift);
+    }
+  }
+#pragma unroll
+  for (int col = 0; col < 8; ++col) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      uint32_t acc = static_cast<uint32_t>(c.col_bias);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        acc += static_cast<uint32_t>(c.m[k * 8 + i]) *
+               static_cast<uint32_t>(y[8 * i + col]);
+      dst[(8 * k + col) * stride] = static_cast<int>(acc) >> c.col_shift;
+    }
+  }
+}
+
+IdctConsts unpack(const int* consts) {
+  IdctConsts c;
+  for (int i = 0; i < 64; ++i) c.m[i] = consts[i];
+  c.row_shift = consts[64];
+  c.col_shift = consts[65];
+  c.col_bias = consts[66];
+  return c;
+}
+
 }  // namespace
 
 extern "C" {
@@ -117,14 +185,18 @@ extern "C" {
 // Returns cudaGetLastError() after the launch (0 = launched).
 int mpv_idct8x8(const int* in, int* out, int n, const int* consts,
                 cudaStream_t stream) {
-  IdctConsts c;
-  for (int i = 0; i < 64; ++i) c.m[i] = consts[i];
-  c.row_shift = consts[64];
-  c.col_shift = consts[65];
-  c.col_bias = consts[66];
   const int ctas = (n + kBlocksPerCta - 1) / kBlocksPerCta;
   idct8x8_kernel<<<ctas, kThreads, 0, stream>>>(
-      reinterpret_cast<const int4*>(in), reinterpret_cast<int4*>(out), n, c);
+      reinterpret_cast<const int4*>(in), reinterpret_cast<int4*>(out), n,
+      unpack(consts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// P1: in and out are (64, n) int32, coefficient-major.
+int mpv_idct8x8_cm(const int* in, int* out, int n, const int* consts,
+                   cudaStream_t stream) {
+  idct8x8_cm_kernel<<<(n + kCmThreads - 1) / kCmThreads, kCmThreads, 0,
+                      stream>>>(in, out, n, unpack(consts));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,10 +13,16 @@ points:
   macroblock in spec order, where the JAX package makes 16 filter calls
   per wave, each wrapped in gathers and scatters.
 
+The same source holds kernel P2, `h264_edge_filter_pm`: the luma filter
+in the position-major (8, B) layout of the timing tool's Pallas kernel
+(`libav_tpu/tools/pallas_probe.py` `_build_deblock`), alpha and beta
+both at clip(qp), no offsets.
+
 Each has a plain PyTorch version beside it (`filter_edge_qp`,
-`deblock_wave_plain`). A wrapper runs the plain version for a tensor on
-the CPU, launches the kernel for a tensor on a CUDA device, and raises
-for anything else: there is no fallback and no size threshold.
+`deblock_wave_plain`, `edge_filter_pm_plain`). A wrapper runs the plain
+version for a tensor on the CPU, launches the kernel for a tensor on a
+CUDA device, and raises for anything else: there is no fallback and no
+size threshold.
 """
 
 from __future__ import annotations
@@ -142,6 +148,46 @@ def h264_edge_filter_lines(lines: torch.Tensor, qp: torch.Tensor,
 
 
 h264_edge_filter_lines.launches = 0
+
+
+# ---------------------------------------------------------------------- #
+# P2, position-major line contract
+# ---------------------------------------------------------------------- #
+
+def edge_filter_pm_plain(xT: torch.Tensor, qp: torch.Tensor,
+                         bs: torch.Tensor) -> torch.Tensor:
+    """(8, B) position-major lines -> (8, B) int32: filter_edge_qp (luma,
+    no offsets) on the transpose."""
+    return filter_edge_qp(xT.T, qp, bs).T.contiguous()
+
+
+def h264_edge_filter_pm(xT: torch.Tensor, qp: torch.Tensor,
+                        bs: torch.Tensor) -> torch.Tensor:
+    """P2 on (8, B) int32, row k = pixel slot p3..q3 of every line, with
+    per-line qp and bS (int32). CPU tensors take `edge_filter_pm_plain`;
+    CUDA tensors launch the kernel."""
+    if xT.device.type == "cpu":
+        return edge_filter_pm_plain(xT, qp, bs)
+    if xT.device.type != "cuda":
+        raise ValueError(f"h264_edge_filter_pm: no kernel for {xT.device}")
+    dev = xT.device
+    n = xT.shape[1]
+    check_int32("xT", xT, dev, (8, n))
+    check_int32("qp", qp, dev, (n,))
+    check_int32("bs", bs, dev, (n,))
+    out = torch.empty_like(xT)
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = library().h264_edge_filter_pm(
+            ptr(xT), ptr(out), ptr(qp), ptr(bs), n, ptr(edge_table(dev)),
+            stream(dev))
+    raise_on(err, "h264_edge_filter_pm")
+    h264_edge_filter_pm.launches += 1
+    return out
+
+
+h264_edge_filter_pm.launches = 0
 
 
 # ---------------------------------------------------------------------- #

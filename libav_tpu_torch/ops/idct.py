@@ -3,8 +3,12 @@
 `_idct8x8_int_pallas`, idct_put and idct_add; reference:
 simple_idct_template.c, BIT_DEPTH 8).
 
-Kernel K2 is `csrc/mpv_idct.cu`. The plain PyTorch version beside it,
-`idct8x8_int_plain`, is the JAX package's formula:
+Kernel K2 is `csrc/mpv_idct.cu`. Beside it in the same source is P1,
+the same function in the coefficient-major (64, B) layout of the timing
+tool's Pallas kernel (`libav_tpu/tools/pallas_probe.py` `_build`), with
+its wrapper `idct8x8_int_cm` and plain version `idct8x8_int_cm_plain`
+here. The plain PyTorch version of K2, `idct8x8_int_plain`, is the JAX
+package's formula:
 
     x = wrap16(blocks)
     rows: y = wrap16((x @ M^T + 2^(ROW_SHIFT-1)) >> ROW_SHIFT), or
@@ -16,9 +20,9 @@ integer matmul on CUDA, and torch.sum of int32 widens to int64 and so
 never wraps: the sums are eight multiply-adds in int64, then wrapped to
 int32 explicitly. `>>` on a negative integer tensor is arithmetic.
 
-`idct8x8_int` runs the plain version for a tensor on the CPU, launches
-the kernel for a tensor on a CUDA device, and raises for anything else:
-there is no fallback and no size threshold.
+Each wrapper runs its plain version for a tensor on the CPU, launches its
+kernel for a tensor on a CUDA device, and raises for anything else: there
+is no fallback and no size threshold.
 """
 
 from __future__ import annotations
@@ -100,6 +104,40 @@ def idct8x8_int(blocks: torch.Tensor) -> torch.Tensor:
 
 
 idct8x8_int.launches = 0
+
+
+def idct8x8_int_cm_plain(xT: torch.Tensor) -> torch.Tensor:
+    """(64, B) coefficient-major int -> (64, B) int32: idct8x8_int_plain
+    on the transpose."""
+    B = xT.shape[1]
+    z = idct8x8_int_plain(xT.T.reshape(B, 8, 8))
+    return z.reshape(B, 64).T.contiguous()
+
+
+def idct8x8_int_cm(xT: torch.Tensor) -> torch.Tensor:
+    """P1 on (64, B) int32, row 8r+c = coefficient (r, c) of every block,
+    -> (64, B) int32. CPU tensors take `idct8x8_int_cm_plain`; CUDA
+    tensors launch the kernel."""
+    if xT.device.type == "cpu":
+        return idct8x8_int_cm_plain(xT)
+    if xT.device.type != "cuda":
+        raise ValueError(f"idct8x8_int_cm: no kernel for {xT.device}")
+    dev = xT.device
+    n = xT.shape[1]
+    check_int32("xT", xT, dev, (64, n))
+    out = torch.empty_like(xT)
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = library().mpv_idct8x8_cm(
+            ptr(xT), ptr(out), n,
+            kernel_constants().ctypes.data_as(ctypes.c_void_p), stream(dev))
+    raise_on(err, "idct8x8_int_cm")
+    idct8x8_int_cm.launches += 1
+    return out
+
+
+idct8x8_int_cm.launches = 0
 
 
 def idct_put(blocks: torch.Tensor, bias: int = 0) -> torch.Tensor:

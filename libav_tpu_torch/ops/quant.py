@@ -1,7 +1,7 @@
-"""MPEG-1/2 inverse quantisation and mismatch control (counterpart of
-`libav_tpu/ops/quant.py` mpeg1_dequant_intra/inter, mpeg2_dequant_intra/
-inter and mpeg2_mismatch_control; reference: mpegvideo.c
-dct_unquantize_mpeg1_* / dct_unquantize_mpeg2_*).
+"""MPEG-1/2 inverse quantisation and mismatch control, and the inverse
+scan (counterpart of `libav_tpu/ops/quant.py` mpeg1_dequant_intra/inter,
+mpeg2_dequant_intra/inter, mpeg2_mismatch_control and dezigzag;
+reference: mpegvideo.c dct_unquantize_mpeg1_* / dct_unquantize_mpeg2_*).
 
 Elementwise int32 over (B, 64) coefficients, as in the JAX package: with
 int16 levels, qscale <= 112 and matrix entries <= 255 no product leaves
@@ -11,7 +11,30 @@ int32. The scans stay the JAX package's numpy tables
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from libav_tpu.ops.quant import zigzag_scan
+
+
+def raster_positions(scan: np.ndarray = None) -> torch.Tensor:
+    """pos[raster index] = scan position, int64 on the CPU, for
+    `dezigzag` (default: the zigzag scan)."""
+    s = zigzag_scan() if scan is None else np.asarray(scan)
+    pos = np.empty(64, np.int64)
+    pos[s] = np.arange(64)
+    return torch.as_tensor(pos)
+
+
+def dezigzag(coeffs_scan_order: torch.Tensor,
+             pos: torch.Tensor = None) -> torch.Tensor:
+    """(B, 64) scan-order coeffs -> (B, 8, 8) raster blocks; pos is
+    `raster_positions(scan)` on the coefficients' device (default: the
+    zigzag scan's)."""
+    if pos is None:
+        pos = raster_positions().to(coeffs_scan_order.device)
+    return coeffs_scan_order[..., pos].reshape(
+        *coeffs_scan_order.shape[:-1], 8, 8)
 
 
 def _operands(coeffs, qscale, qmat):

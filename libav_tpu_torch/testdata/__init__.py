@@ -7,10 +7,22 @@ two MPEG-2 streams are 1920x1080 in the same moving test pattern, qscale
   - `mpeg2_1080i_fieldpic.m2vpkts`: 4 frames coded as 8 field pictures
     (I, I, then P fields cycling whole-field, 16x8 and dual-prime MC);
   - `mpeg2_1080p_ipbb.m2vpkts`: 7 frame pictures, I/P/B with 2 B frames.
+`mjpeg_1080p.mjpegpkts` is 4 JPEGs of the same pattern, 1920x1080
+yuvj420p, from the JAX package's MJPEG encoder at quality 90.
 Each stream is stored as 4-byte big-endian length-prefixed packets. Its
 golden JSON holds, per output frame, the adler32 (seed 0, over the Y|U|V
 bytes, as a framecrc line of rawvideo output computes it) and md5 that the
 JAX package's decoder produced on the CPU, plus one md5 over all frames.
+`<stream>.framecrc` is what `libav_tpu.tools.avconv -i <input> -f
+framecrc` wrote on the CPU for the stream as a CLI input file
+(`write_cli_input`: an Annex-B `.h264`, an `.m2v` elementary stream, or
+the JPEGs concatenated into one `.mjpeg` file, which the image2 demuxer
+splits at SOI/EOI; it opens an `img_%03d.jpg` pattern as a plain file
+name, so a numbered sequence is no CLI input).
+`h264_64x64_bench.h264` is an Annex-B file of 4 frames at 64x64 with the
+bench stream's settings, a CLI input for the CPU tests.
+`mpeg2_1080p_ipbb.show_frames` is the frame section of what
+`libav_tpu.tools.avprobe -show_frames` printed for that stream's input.
 All files are written by `tools/gen_torch_smoke_stream.py`.
 """
 
@@ -32,12 +44,48 @@ SMOKE_STREAM = os.path.join(HERE, "h264_1080p_ipbb_cabac.h264pkts")
 SMOKE_GOLDEN = os.path.join(HERE, "h264_1080p_ipbb_cabac.golden.json")
 # name -> number of coded pictures (one K2 launch each)
 MPEG2_SMOKE = {"mpeg2_1080i_fieldpic": 8, "mpeg2_1080p_ipbb": 7}
+MJPEG_SMOKE = "mjpeg_1080p"
+SMALL_H264 = os.path.join(HERE, "h264_64x64_bench.h264")
+# committed stream -> (packet file suffix, the CLI's input file name)
+CLI_INPUTS = {
+    "h264_1080p_ipbb_cabac": (".h264pkts", "bench.h264"),
+    "mpeg2_1080p_ipbb": (".m2vpkts", "ipbb.m2v"),
+    "mpeg2_1080i_fieldpic": (".m2vpkts", "fld.m2v"),
+    MJPEG_SMOKE: (".mjpegpkts", "frames.mjpeg"),
+}
 
 
-def mpeg2_paths(name: str):
-    """(packets, golden) paths of a committed MPEG-2 smoke stream."""
-    return (os.path.join(HERE, name + ".m2vpkts"),
+def stream_paths(name: str):
+    """(packets, golden) paths of a committed smoke stream."""
+    return (os.path.join(HERE, name + CLI_INPUTS[name][0]),
             os.path.join(HERE, name + ".golden.json"))
+
+
+def framecrc_path(name: str) -> str:
+    """The JAX CLI's framecrc output for a committed smoke stream."""
+    return os.path.join(HERE, name + ".framecrc")
+
+
+def show_frames_path(name: str) -> str:
+    """The JAX avprobe's `-show_frames` frame section for a stream."""
+    return os.path.join(HERE, name + ".show_frames")
+
+
+def frames_section(avprobe_text: str) -> str:
+    """The [frames.frame] blocks of avprobe's output (what follows them,
+    [streams.stream] and [format], names the input's path)."""
+    for marker in ("[streams.stream]", "[format]"):
+        avprobe_text = avprobe_text.split(marker)[0]
+    return avprobe_text
+
+
+def write_cli_input(name: str, directory: str) -> str:
+    """Write a committed stream into directory as the file the CLI reads,
+    its packets concatenated; -> the path for `-i`."""
+    path = os.path.join(directory, CLI_INPUTS[name][1])
+    with open(path, "wb") as f:
+        f.write(b"".join(read_packets(stream_paths(name)[0])))
+    return path
 
 
 def read_packets(path: str) -> List[bytes]:

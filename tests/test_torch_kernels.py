@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
 versions, on a CUDA card (the plain versions are held against the JAX
-package on the CPU in test_torch_h264_ops.py and test_torch_mpeg_ops.py,
-which import this module's input makers).
+package on the CPU in test_torch_h264_ops.py, test_torch_mpeg_ops.py and,
+for P1 and P2, test_torch_tools.py; the first two import this module's
+input makers).
 
 This file imports no jax, so it runs on a host without it:
 
@@ -94,6 +95,10 @@ def test_wrappers_refuse_devices_without_a_kernel():
     blocks = torch.empty((4, 8, 8), dtype=torch.int32, device=meta)
     with pytest.raises(ValueError, match="no kernel"):
         tidct.idct8x8_int(blocks)
+    with pytest.raises(ValueError, match="no kernel"):
+        tidct.idct8x8_int_cm(blocks.reshape(4, 64).T)
+    with pytest.raises(ValueError, match="no kernel"):
+        tdb.h264_edge_filter_pm(lines.T, v, v)
 
 
 _needs_cuda = [pytest.mark.cuda,
@@ -143,3 +148,30 @@ class TestKernelsOnCard:
         torch.cuda.synchronize()
         assert tidct.idct8x8_int.launches == before + 1
         assert torch.equal(got, tidct.idct8x8_int_plain(x))
+
+    @pytest.mark.parametrize("B", [1, 127, 128, 513, 48896])
+    def test_idct8x8_int_cm(self, B):
+        """P1, with the five input classes (values outside int16 and rows
+        whose sums overflow int32 among them)."""
+        dev = torch.device("cuda", 0)
+        x = _t(testdata.idct_blocks(83 + B, B)).to(dev)
+        xT = x.reshape(B, 64).T.contiguous()
+        before = tidct.idct8x8_int_cm.launches
+        got = tidct.idct8x8_int_cm(xT)
+        torch.cuda.synchronize()
+        assert tidct.idct8x8_int_cm.launches == before + 1
+        assert torch.equal(got, tidct.idct8x8_int_cm_plain(xT))
+        assert torch.equal(got.T.reshape(B, 8, 8), tidct.idct8x8_int(x))
+
+    @pytest.mark.parametrize("B", [1, 127, 128, 513, 49152])
+    def test_edge_filter_pm(self, B):
+        """P2, qp 0-51 and bS 0-4."""
+        dev = torch.device("cuda", 0)
+        lines, qp, bs = (_t(a).to(dev) for a in edge_lines(84 + B, B=B))
+        xT = lines.T.contiguous()
+        before = tdb.h264_edge_filter_pm.launches
+        got = tdb.h264_edge_filter_pm(xT, qp, bs)
+        torch.cuda.synchronize()
+        assert tdb.h264_edge_filter_pm.launches == before + 1
+        assert torch.equal(got, tdb.edge_filter_pm_plain(xT, qp, bs))
+        assert torch.equal(got.T, tdb.h264_edge_filter_lines(lines, qp, bs))

@@ -187,7 +187,7 @@ def test_registry_is_the_port_own():
 def test_committed_golden_is_the_jax_decode(name):
     """The committed 1080-line stream's golden equals a fresh JAX
     decode."""
-    path, golden = testdata.mpeg2_paths(name)
+    path, golden = testdata.stream_paths(name)
     datas = testdata.read_packets(path)
     assert testdata.digest(decode_reference(datas, "mpeg2video")) == \
         testdata.load_golden(golden)
@@ -197,7 +197,7 @@ def test_committed_golden_is_the_jax_decode(name):
 @pytest.mark.slow
 def test_committed_stream_port_decode_matches_golden(name):
     """The chip smoke's MPEG-2 main path, on the CPU."""
-    path, golden = testdata.mpeg2_paths(name)
+    path, golden = testdata.stream_paths(name)
     datas = testdata.read_packets(path)
     got = testdata.digest(_port_decode("mpeg2video", datas))
     assert got == testdata.load_golden(golden)
