@@ -4,7 +4,9 @@ The send/receive API and the port's own codec table live in `api.py`;
 the host halves of the ported codecs (headers, entropy, DPB) are copies
 of the JAX package's host code, and their device halves are the port's
 PyTorch programs and hand kernels. Decoders take their torch device as a
-keyword: `find_decoder(codec_id)(params, device=...)`.
+keyword: `find_decoder(codec_id)(params, device=...)`; so does an
+encoder with a device part (`DEVICE_PART`, the MPEG-4 encoder), whose
+device defaults to "cuda".
 """
 
 from libav_tpu_torch.codecs.api import (CodecContext, Decoder,  # noqa: F401
@@ -14,4 +16,4 @@ from libav_tpu_torch.codecs.api import (CodecContext, Decoder,  # noqa: F401
 
 # import for registration side effects
 from libav_tpu_torch.codecs import (h264, mjpeg, mpeg12,  # noqa: F401
-                                    rawvideo)  # noqa: F401
+                                    mpeg4, rawvideo)  # noqa: F401

@@ -81,9 +81,9 @@ NOT_PORTED = {
 
 # encoder id -> the ROADMAP.md module-queue step that ports its device part
 ENCODER_STEPS = {
-    "h264": "7", "mpeg1video": "8b", "mpeg2video": "8b", "mpeg4": "8b",
-    "mjpeg": "9", "aac": "10", "ac3": "10", "mp1": "10", "mp2": "10",
-    "mp3": "10", "flac": "10", "prores": "11", "ffv1": "15",
+    "h264": "7", "mpeg1video": "8b", "mpeg2video": "8b", "mjpeg": "9",
+    "aac": "10", "ac3": "10", "mp1": "10", "mp2": "10", "mp3": "10",
+    "flac": "10", "prores": "11", "ffv1": "15",
 }
 
 
@@ -115,8 +115,10 @@ def find_decoder(codec_id: str) -> Type["Decoder"]:
 
 
 def find_encoder(codec_id: str) -> Type["Encoder"]:
-    """The host encoders (rawvideo, pcm_*); an encoder with a device part
-    raises ENCODER_NOT_FOUND naming the step that ports it."""
+    """reference: avcodec.h avcodec_find_encoder. An encoder whose
+    DEVICE_PART is set takes its torch device as a keyword:
+    cls(params, device=...); one the port lacks raises ENCODER_NOT_FOUND
+    naming the step that ports it."""
     if codec_id not in _ENCODERS:
         step = ENCODER_STEPS.get(codec_id)
         raise AVError(ENCODER_NOT_FOUND, codec_id if step is None else
@@ -304,6 +306,10 @@ class Decoder(CodecContext):
 
 class Encoder(CodecContext):
     """reference: encode.c:296 avcodec_send_frame path"""
+
+    # True for an encoder with device programs: its constructor takes
+    # device= (the host encoders, rawvideo and pcm_*, take none)
+    DEVICE_PART = False
 
     def send_frame(self, frame: Optional[Frame]):
         if not self._opened:

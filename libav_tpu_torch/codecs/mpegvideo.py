@@ -1,18 +1,27 @@
-"""MPEG-1/2 device reconstruction (counterpart of
-`libav_tpu/codecs/mpegvideo.py` recon_jit, recon_field_jit,
-fields_of_frame_jit, weave_fields_jit and zero_pad_refs; reference:
-mpegvideo.c ff_mpv_decode_mb and mpegvideo_motion.c).
+"""mpegvideo device programs: MPEG-1/2 and H.263-quantised
+reconstruction, and the MPEG-4 encoder's picture programs (counterpart
+of `libav_tpu/codecs/mpegvideo.py` recon_jit, recon_field_jit,
+fields_of_frame_jit, weave_fields_jit, zero_pad_refs, encode_jit and
+encode_b_h263_jit; reference: mpegvideo.c ff_mpv_decode_mb,
+mpegvideo_motion.c and the device half of mpegvideo_enc.c).
 
 One program per coded picture, the JAX package's stages:
-  1. residual: dequant (MPEG-1 or MPEG-2, intra/inter per MB), the
-     inverse scan, MPEG-2 mismatch control, and the 8x8 IDCT of every
-     block of the picture in one launch of kernel K2 (ops/idct.py);
+  1. residual: dequant (MPEG-1, MPEG-2 or H.263 with the MPEG-4 DC
+     scaler, intra/inter per MB), the inverse scan, MPEG-2 mismatch
+     control, and the 8x8 IDCT of every block of the picture in one
+     launch of kernel K2 (ops/idct.py);
   2. prediction: half-pel MC of luma and chroma from one or two
      references, combined per MB (forward, backward or averaged); frame
      pictures add field MC, field DCT and dual prime, field pictures
      pick a reference field per 16x8 half;
   3. assembly: prediction + residual, clamped, laid out as planes, and
      the edge-padded planes the next picture predicts from.
+
+The encoder's programs (`Encode`, `EncodeB`) run motion search
+(ops/me.py), prediction, the residual, the forward DCT (ops/fdct.py) and
+the H.263 quantiser for every macroblock at once; the encoder then
+reconstructs its anchors through `Recon` ('h263'), the decoder's
+program, so the prediction loop is closed through K2.
 
 Each program is an nn.Module whose per-geometry constants (inverse scan,
 macroblock origins) are registered buffers, built by an lru_cached
@@ -21,8 +30,11 @@ program picks between two reference fields with `where` over two MCs,
 this one gathers from the stacked pair with a per-block index: the same
 pixels, half the work.
 
-Not ported (they raise NotImplementedError, see ROADMAP.md): the H.263
-and MPEG-4 quantisers, quarter-sample MC and 4MV of the MPEG-4 family.
+Not ported (ROADMAP.md step 8b): the other quantisers of the
+H.263/MPEG-4 family (h263sh, wmv1, mpeg4, mpeg4mq), quarter-sample MC
+and 4MV, which `Recon` refuses with NotImplementedError; the encoder
+programs are those of the 'h263' kind with the SAD decision only, so the
+MPEG-1/2 and MPEG-quantiser encoders and the SATD decision have none.
 """
 
 from __future__ import annotations
@@ -35,9 +47,12 @@ from torch import nn
 
 from libav_tpu_torch.ops.quant import alternate_scan, zigzag_scan
 from libav_tpu_torch.ops import quant as quant_ops
+from libav_tpu_torch.ops.fdct import fdct8x8_int
 from libav_tpu_torch.ops.idct import idct8x8_int
-from libav_tpu_torch.ops.mc import (EDGE, avg_pred, chroma_mv_div2, mc_hpel,
-                                    pad_plane, pad_rows)
+from libav_tpu_torch.ops.mc import (EDGE, avg_pred, chroma_mv_div2,
+                                    chroma_mv_h263, mc_hpel, pad_plane,
+                                    pad_rows)
+from libav_tpu_torch.ops.me import FullPelSearch, HpelRefine
 
 
 def _unported(what: str):
@@ -73,8 +88,14 @@ class _Picture(nn.Module):
         super().__init__()
         self.mb_w, self.mb_h, self.nmb = mb_w, mb_h, mb_w * mb_h
         self.quant_kind = quant_kind
+        # H.263/MPEG-4 derive chroma vectors with the rounding rule, not
+        # MPEG-1/2 truncation
+        self.chroma_mv = chroma_mv_h263 if quant_kind == "h263" \
+            else chroma_mv_div2
         self.register_buffer("pos", quant_ops.raster_positions(
             alternate_scan() if alt_scan else zigzag_scan()))
+        self.register_buffer("luma_blk", torch.as_tensor(
+            np.tile([True] * 4 + [False] * 2, self.nmb)))
         mbx = np.arange(self.nmb) % mb_w
         mby = np.arange(self.nmb) // mb_w
         for name, a in (("x16", mbx * 16), ("y16", mby * 16),
@@ -90,6 +111,10 @@ class _Picture(nn.Module):
         if self.quant_kind == "mpeg1":
             deq_i = quant_ops.mpeg1_dequant_intra(c, qs, intra_q)
             deq_p = quant_ops.mpeg1_dequant_inter(c, qs, inter_q)
+        elif self.quant_kind == "h263":
+            dcs = quant_ops.dc_scaler(qs, self.luma_blk)
+            deq_i = quant_ops.h263_dequant(c, qs, dcs, True)
+            deq_p = quant_ops.h263_dequant(c, qs, dcs, False)
         else:
             deq_i = quant_ops.mpeg2_dequant_intra(c, qs, intra_q)
             deq_p = quant_ops.mpeg2_dequant_inter(c, qs, inter_q)
@@ -99,10 +124,11 @@ class _Picture(nn.Module):
             blocks = quant_ops.mpeg2_mismatch_control(blocks)
         return idct8x8_int(blocks.contiguous()).reshape(self.nmb, 6, 8, 8)
 
-    def mc6(self, refs, mv, rnd: int, ridx=None):
+    def mc6(self, refs, mv, rnd: int, ridx=None, chroma_mv=None):
         """Luma 16x16 and chroma 8x8 half-pel MC of every MB from the
-        (y, u, v) padded references (or stacks of them, with ridx)."""
-        cmv = chroma_mv_div2(mv)
+        (y, u, v) padded references (or stacks of them, with ridx); the
+        chroma vectors by chroma_mv (default: the quantiser kind's)."""
+        cmv = (chroma_mv or self.chroma_mv)(mv)
         return (mc_hpel(refs[0], self.x16, self.y16, mv[:, 0], mv[:, 1], 16,
                         rnd, ridx),
                 mc_hpel(refs[1], self.x8, self.y8, cmv[:, 0], cmv[:, 1], 8,
@@ -145,7 +171,7 @@ class Recon(_Picture):
                  alt_scan: bool, inter_frame: bool, rounding: int = 0,
                  interlaced: bool = False, qpel: bool = False,
                  dual: bool = False, any_4mv: bool = False):
-        if quant_kind not in ("mpeg1", "mpeg2"):
+        if quant_kind not in ("mpeg1", "mpeg2", "h263"):
             raise _unported(f"the {quant_kind!r} quantiser")
         if qpel:
             raise _unported("quarter-sample MC (qpel)")
@@ -170,7 +196,7 @@ class Recon(_Picture):
         halves = []
         for f in range(2):              # destination field
             mv = mv2[:, f]
-            cmv = chroma_mv_div2(mv)
+            cmv = self.chroma_mv(mv)
             ridx = sel[:, f] != 0
             halves.append((
                 mc_hpel(refs[0], self.x16, self.y8, mv[:, 0], mv[:, 1], 16,
@@ -273,6 +299,131 @@ class ReconField(_Picture):
         return self.assemble(pred, self.luma_residual(resid), resid)
 
 
+class _EncodePicture(_Picture):
+    """Shared stages of the encoder's picture programs over mb_w x mb_h
+    macroblocks: the source and prediction as (nmb, 6, 8, 8) blocks,
+    the motion search against one reference, and FDCT + H.263 quant."""
+
+    def __init__(self, mb_w: int, mb_h: int, search_range: int):
+        super().__init__(mb_w, mb_h, False, "h263")
+        self.register_buffer("zz", torch.as_tensor(
+            zigzag_scan().astype(np.int64)))
+        self.fullpel = FullPelSearch(mb_w, mb_h, search_range)
+        self.refine = HpelRefine(mb_w, mb_h)
+
+    def mbs(self, plane: torch.Tensor, s: int) -> torch.Tensor:
+        """(mb_h * s, mb_w * s) plane -> (nmb, s, s) int32."""
+        return (plane.reshape(self.mb_h, s, self.mb_w, s).permute(0, 2, 1, 3)
+                .reshape(self.nmb, s, s).to(torch.int32))
+
+    def blocks(self, y, u, v) -> torch.Tensor:
+        """Per-MB (nmb, 16, 16) luma, (nmb, 8, 8) chroma -> (nmb, 6, 8, 8):
+        the four luma blocks in raster order, then U and V."""
+        yb = (y.reshape(self.nmb, 2, 8, 2, 8).permute(0, 1, 3, 2, 4)
+              .reshape(self.nmb, 4, 8, 8))
+        return torch.cat([yb, u[:, None], v[:, None]], 1)
+
+    def source(self, cur_y, cur_u, cur_v):
+        """-> (luma MBs (nmb, 16, 16), blocks (nmb, 6, 8, 8)), int32."""
+        y = self.mbs(cur_y, 16)
+        return y, self.blocks(y, self.mbs(cur_u, 8), self.mbs(cur_v, 8))
+
+    def motion(self, cur_mbs, ref_y):
+        """Full-pel diamond search, then the half-pel refine: -> (half-pel
+        vectors (nmb, 2), SAD (nmb,)), int32."""
+        fmv, _ = self.fullpel(cur_mbs, ref_y)
+        return self.refine(cur_mbs, ref_y, fmv)
+
+    def quantize(self, src, qscale):
+        """(nmb, 6, 8, 8) int32 -> (FDCT coefficients (n6, 64) raster,
+        the same in zigzag order, H.263 levels (n6, 64) zigzag: sign(c)
+        (|c| // 16 q), clipped to +-255)."""
+        coeffs8 = fdct8x8_int(src.reshape(self.nmb * 6, 8, 8)) \
+            .reshape(self.nmb * 6, 64)
+        czz = coeffs8[:, self.zz]
+        q16 = 16 * qscale.to(torch.int32).repeat_interleave(6)[:, None]
+        levels = (torch.sign(czz) * (czz.abs() // q16)).clamp(-255, 255)
+        return coeffs8, czz, levels
+
+
+class Encode(_EncodePicture):
+    """I or P picture encode, the JAX encode_jit program for the 'h263'
+    kind (MPEG-4 quant_type 0): pixels (+ reference) -> levels (nmb, 6,
+    64) in zigzag order, half-pel vectors and intra decisions. A P
+    macroblock goes intra when its SAD about its mean, plus 256, is
+    below its best inter SAD; the residual's chroma prediction uses
+    MPEG-1/2 chroma vectors, as the JAX program's does. Intra DC levels
+    are rounded by the DC scaler."""
+
+    def __init__(self, mb_w: int, mb_h: int, inter: bool,
+                 search_range: int = 15, want_coeffs: bool = False):
+        super().__init__(mb_w, mb_h, search_range)
+        self.inter, self.want_coeffs = inter, want_coeffs
+
+    def forward(self, cur_y, cur_u, cur_v, qscale, intra_qmat_zz,
+                inter_qmat_zz, r0y, r0u, r0v):
+        cur_mbs, blocks = self.source(cur_y, cur_u, cur_v)
+        dev = blocks.device
+        if self.inter:
+            mv, sad = self.motion(cur_mbs, r0y)
+            # floor(sum |x - S/256|) in integers: the JAX program's
+            # float32 sum is exact (multiples of 1/256 below 2^16)
+            s = cur_mbs.sum(dim=(1, 2), dtype=torch.int32)[:, None, None]
+            intra_cost = (256 * cur_mbs - s).abs().sum(
+                dim=(1, 2), dtype=torch.int32) >> 8
+            use_intra = intra_cost + 256 < sad
+            pred = self.mc6((r0y, r0u, r0v), mv, 1, chroma_mv=chroma_mv_div2)
+            src = torch.where(use_intra[:, None, None, None], blocks,
+                              blocks - self.blocks(*pred))
+        else:
+            mv = torch.zeros((self.nmb, 2), dtype=torch.int32, device=dev)
+            use_intra = torch.ones((self.nmb,), dtype=torch.bool, device=dev)
+            src = blocks
+        coeffs8, czz, levels = self.quantize(src, qscale)
+        # intra DC by the DC scaler (true DCT scale = coeffs8 / 8)
+        qs6 = qscale.to(torch.int32).repeat_interleave(6)
+        qdc = 8 * quant_ops.dc_scaler(qs6, self.luma_blk)
+        dc8 = coeffs8[:, 0]
+        dc_lvl = torch.sign(dc8) * ((dc8.abs() + qdc // 2) // qdc)
+        levels[:, 0] = torch.where(use_intra.repeat_interleave(6), dc_lvl,
+                                   levels[:, 0])
+        out = (levels.reshape(self.nmb, 6, 64), mv, use_intra)
+        if self.want_coeffs:
+            return out + (czz.reshape(self.nmb, 6, 64),)
+        return out
+
+
+class EncodeB(_EncodePicture):
+    """B picture encode, the JAX encode_b_h263_jit program: forward and
+    backward half-pel search, a per-MB choice of forward, backward or bi
+    prediction by luma SAD (bi, (a + b + 1) >> 1, wins only by more than
+    128), the residual's FDCT and the H.263 inter quantiser. -> (levels
+    (nmb, 6, 64) zigzag, forward and backward vectors, sel 0 forward, 1
+    backward, 2 bi, the chosen mode's SAD)."""
+
+    def __init__(self, mb_w: int, mb_h: int, search_range: int = 12):
+        super().__init__(mb_w, mb_h, search_range)
+
+    def forward(self, cur_y, cur_u, cur_v, qscale, intra_qmat_zz,
+                inter_qmat_zz, r0y, r0u, r0v, r1y, r1u, r1v):
+        cur_mbs, blocks = self.source(cur_y, cur_u, cur_v)
+        mv_f, sad_f = self.motion(cur_mbs, r0y)
+        mv_b, sad_b = self.motion(cur_mbs, r1y)
+        pf = self.mc6((r0y, r0u, r0v), mv_f, 1)
+        pb = self.mc6((r1y, r1u, r1v), mv_b, 1)
+        sad_bi = (cur_mbs - ((pf[0] + pb[0] + 1) >> 1)).abs().sum(
+            dim=(1, 2), dtype=torch.int32)
+        sel = torch.where(sad_bi + 128 < torch.minimum(sad_f, sad_b), 2,
+                          torch.where(sad_b < sad_f, 1, 0)).to(torch.int32)
+        sad = torch.where(sel == 2, sad_bi, torch.where(sel == 1, sad_b,
+                                                        sad_f))
+        m = sel[:, None, None]
+        pred = [torch.where(m == 2, (a + b + 1) >> 1,
+                            torch.where(m == 1, b, a)) for a, b in zip(pf, pb)]
+        _, _, levels = self.quantize(blocks - self.blocks(*pred), qscale)
+        return levels.reshape(self.nmb, 6, 64), mv_f, mv_b, sel, sad
+
+
 class FieldsOfFrame(nn.Module):
     """Padded frame planes -> ((top y, u, v), (bottom y, u, v)) padded
     field planes: both dimensions stripped and re-padded."""
@@ -321,6 +472,18 @@ def fields_of_frame(mb_w: int, mb_h: int, *,
 def weave_fields(mb_w: int, mb_h: int, *,
                  device: torch.device) -> WeaveFields:
     return WeaveFields().to(device)
+
+
+@functools.lru_cache(maxsize=32)
+def encode(mb_w: int, mb_h: int, inter: bool, search_range: int = 15,
+           want_coeffs: bool = False, *, device: torch.device) -> Encode:
+    return Encode(mb_w, mb_h, inter, search_range, want_coeffs).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def encode_b_h263(mb_w: int, mb_h: int, search_range: int = 12, *,
+                  device: torch.device) -> EncodeB:
+    return EncodeB(mb_w, mb_h, search_range).to(device)
 
 
 @functools.lru_cache(maxsize=8)

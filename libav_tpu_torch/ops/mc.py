@@ -1,7 +1,7 @@
-"""Reference-plane padding, patch gathers and MPEG-1/2 half-pel motion
+"""Reference-plane padding, patch gathers and half-pel motion
 compensation (counterpart of `libav_tpu/ops/mc.py` EDGE, pad_plane,
-mc_hpel, avg_pred and chroma_mv_div2; reference: hpeldsp.h
-put_pixels_tab and mpegvideo_motion.c mpeg_motion).
+mc_hpel, avg_pred, chroma_mv_div2 and chroma_mv_h263; reference:
+hpeldsp.h put_pixels_tab and mpegvideo_motion.c mpeg_motion).
 
 Every block's source patch is gathered from the edge-padded reference in
 one indexing op. The patch origin follows `lax.dynamic_slice`'s start
@@ -91,3 +91,15 @@ def chroma_mv_div2(mv: torch.Tensor) -> torch.Tensor:
     (ISO 11172-2 §2.4.4.2). torch's integer // and % floor, as numpy's
     and jax's do, so the JAX package's expression carries over."""
     return mv // 2 + ((mv % 2) != 0) * (mv < 0)
+
+
+def chroma_mv_h263(mv: torch.Tensor) -> torch.Tensor:
+    """H.263 / MPEG-4 1MV chroma vector in chroma half-pel units
+    (reference: mpegvideo_motion.c mpeg_motion_internal, FMT_H263): half
+    pel whenever mv % 4 != 0, integer part mv >> 2."""
+    return 2 * (mv >> 2) + ((mv & 3) != 0).to(mv.dtype)
+
+
+def chroma_mv_h263_ref(mv):
+    """The JAX package's numpy reference, copied."""
+    return 2 * (mv >> 2) + ((mv & 3) != 0).astype(mv.dtype)

@@ -1,12 +1,15 @@
-"""MPEG-1/2 inverse quantisation and mismatch control, and the inverse
-scan (counterpart of `libav_tpu/ops/quant.py` mpeg1_dequant_intra/inter,
-mpeg2_dequant_intra/inter, mpeg2_mismatch_control and dezigzag;
-reference: mpegvideo.c dct_unquantize_mpeg1_* / dct_unquantize_mpeg2_*).
+"""MPEG-1/2 and H.263 inverse quantisation, MPEG-2 mismatch control, the
+MPEG-4 DC scaler and the scans (counterpart of `libav_tpu/ops/quant.py`
+mpeg1_dequant_intra/inter, mpeg2_dequant_intra/inter,
+mpeg2_mismatch_control, h263_dequant, mpeg4_dc_scaler and dezigzag;
+reference: mpegvideo.c dct_unquantize_mpeg1_* / _mpeg2_* / _h263_*).
 
 Elementwise int32 over (B, 64) coefficients, as in the JAX package: with
 int16 levels, qscale <= 112 and matrix entries <= 255 no product leaves
-int32. The scans are the JAX package's numpy tables, copied
-(`libav_tpu/ops/quant.py` zigzag_scan, alternate_scan).
+int32. The scans, the DC scaler and the h263 reference are the JAX
+package's numpy code, copied (`libav_tpu/ops/quant.py` zigzag_scan,
+alternate_scan, alternate_horizontal_scan, mpeg4_dc_scaler,
+h263_dequant_ref).
 """
 
 from __future__ import annotations
@@ -28,6 +31,20 @@ def zigzag_scan() -> np.ndarray:
             idxs.reverse()  # odd diagonals run top-right -> bottom-left
         order += [r * 8 + c for r, c in idxs]
     return np.array(order, dtype=np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def alternate_horizontal_scan() -> np.ndarray:
+    """MPEG-4 alternate horizontal scan, used for intra blocks whose AC
+    prediction came from the block above (ISO 14496-2 Table 12-2;
+    reference: ff_alternate_horizontal_scan, mpegvideodata.c:82)."""
+    t = [
+        0,  1,  2,  3,  8,  9, 16, 17, 10, 11,  4,  5,  6,  7, 15, 14,
+        13, 12, 19, 18, 24, 25, 32, 33, 26, 27, 20, 21, 22, 23, 28, 29,
+        30, 31, 34, 35, 40, 41, 48, 49, 42, 43, 36, 37, 38, 39, 44, 45,
+        46, 47, 50, 51, 56, 57, 58, 59, 52, 53, 54, 55, 60, 61, 62, 63,
+    ]
+    return np.array(t, dtype=np.int32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -119,3 +136,58 @@ def mpeg2_mismatch_control(blocks: torch.Tensor) -> torch.Tensor:
     out = blocks.clone()
     out[:, 7, 7] = blocks[:, 7, 7] ^ ((s & 1) == 0).to(blocks.dtype)
     return out
+
+
+def h263_dequant(coeffs, qscale, dc_scaler, intra: bool):
+    """H.263 / MPEG-4 quant_type 0 (reference: mpegvideo.c
+    dct_unquantize_h263_intra/inter): |rec| = q (2|L| + 1) - (1 if q is
+    even), the intra DC = L * dc_scaler, clipped to [-2048, 2047]."""
+    c, q, _ = _operands(coeffs, qscale, 1)
+    lvl = torch.sign(c) * (q * (2 * c.abs() + 1) - (1 - (q & 1)))
+    if intra:
+        d = torch.as_tensor(dc_scaler, dtype=torch.int32, device=c.device)
+        while d.dim() < c.dim():
+            d = d[..., None]
+        lvl = _with_dc(lvl, c * d)
+    return lvl.clamp(-2048, 2047)
+
+
+def h263_dequant_ref(coeffs: np.ndarray, qscale, dc_scaler,
+                     intra: bool) -> np.ndarray:
+    c = coeffs.astype(np.int64)
+    q = np.asarray(qscale, dtype=np.int64)
+    while q.ndim < c.ndim:
+        q = q[..., None]
+    even = 1 - (q & 1)
+    lvl = np.sign(c) * (q * (2 * np.abs(c) + 1) - even)
+    if intra:
+        d = np.asarray(dc_scaler, dtype=np.int64)
+        while d.ndim < c.ndim:
+            d = d[..., None]
+        mask = np.zeros(64, dtype=bool)
+        mask[0] = True
+        lvl = np.where(mask, c * d, lvl)
+    return np.clip(lvl, -2048, 2047).astype(np.int32)
+
+
+def mpeg4_dc_scaler(qscale, luma: bool):
+    """ISO 14496-2 §7.4.1 table 7-2 DC scaler, on an int (-> int) or a
+    numpy array (-> int32 array)."""
+    q = np.asarray(qscale)
+    if luma:
+        s = np.where(q < 5, 8,
+                     np.where(q < 9, 2 * q,
+                              np.where(q < 25, q + 8, 2 * q - 16)))
+    else:
+        s = np.where(q < 5, 8,
+                     np.where(q < 25, (q + 13) // 2, q - 6))
+    return s.astype(np.int32) if s.ndim else int(s)
+
+
+def dc_scaler(qscale: torch.Tensor, luma: torch.Tensor) -> torch.Tensor:
+    """mpeg4_dc_scaler on tensors: per-element qscale, luma flags."""
+    q = qscale.to(torch.int32)
+    lum = torch.where(q < 5, 8, torch.where(q < 9, 2 * q, torch.where(
+        q < 25, q + 8, 2 * q - 16)))
+    chroma = torch.where(q < 5, 8, torch.where(q < 25, (q + 13) // 2, q - 6))
+    return torch.where(luma, lum, chroma).to(torch.int32)

@@ -23,6 +23,9 @@ name, so a numbered sequence is no CLI input).
 bench stream's settings, a CLI input for the CPU tests.
 `mpeg2_1080p_ipbb.show_frames` is the frame section of what
 `libav_tpu.tools.avprobe -show_frames` printed for that stream's input.
+`mpeg4_1080p_from_ipbb.golden.json` is the JAX package's MPEG-4 encode
+of that stream's 7 decoded frames (MPEG4_SETTINGS), as digests only: no
+encoded video is committed.
 All files are written by `tools/gen_torch_smoke_stream.py`.
 """
 
@@ -53,6 +56,21 @@ CLI_INPUTS = {
     "mpeg2_1080i_fieldpic": (".m2vpkts", "fld.m2v"),
     MJPEG_SMOKE: (".mjpegpkts", "frames.mjpeg"),
 }
+
+
+# the MPEG-4 encode of mpeg2_1080p_ipbb's decoded frames: its golden
+# holds each packet's size and md5, each anchor's reconstructed planes
+# (adler32 and md5 over the coded 1920x1088 Y|U|V) and the md5 of the
+# JAX CLI's output for MPEG4_CLI_ARGS (input ipbb.m2v, output out.m4v)
+MPEG4_SMOKE = "mpeg4_1080p_from_ipbb"
+MPEG4_SOURCE = "mpeg2_1080p_ipbb"
+MPEG4_SETTINGS = {"qscale": 6, "gop_size": 12, "b_frames": 2, "bdirect": 7}
+MPEG4_CLI_ARGS = ("-c:v", "mpeg4", "-q:v", "6", "-g", "12", "-bf", "2",
+                  "-f", "m4v")
+
+
+def mpeg4_golden_path() -> str:
+    return os.path.join(HERE, MPEG4_SMOKE + ".golden.json")
 
 
 def stream_paths(name: str):

@@ -17,15 +17,20 @@ This is the JAX package's CLI (libav_tpu/tools/avconv.py), copied, on the
 port's codec table and devices:
 
     python -m libav_tpu_torch.tools.avconv -i in.h264 -f framecrc out.crc
+    python -m libav_tpu_torch.tools.avconv -i in.m2v -c:v mpeg4 -q:v 6
+        -g 12 -bf 2 -f m4v out.m4v          (one command: a transcode)
 
-decodes on CUDA and exits nonzero with a message where there is none;
+run on CUDA and exit nonzero with a message where there is none;
 `main(argv, device="cpu")` runs the same path on the CPU. The decoders
 are the port's (H.264 with kernel K1, MPEG-1/2 and MJPEG with kernel K2)
-on that one device; the encoders are the host ones, rawvideo and PCM,
-and any other raises ENCODER_NOT_FOUND naming the ROADMAP.md step that
-ports its device part. `-prof DIR` writes a torch.profiler Chrome trace
-into DIR plus the host timer report (with the H.264 decoder's
-`h264.entropy` span). Scaling and pixel-format conversion (`-s`,
+on that one device. The encoders are the host ones, rawvideo and PCM,
+and the MPEG-4 part 2 encoder (`-c:v mpeg4` with `-q:v`, `-g`, `-bf`
+and its pass-through options), whose device programs run on the same
+device: decoded frames reach it as tensors there, with no trip to the
+host. Any other encoder raises ENCODER_NOT_FOUND naming the ROADMAP.md
+step that ports its device part. `-prof DIR` writes a torch.profiler
+Chrome trace into DIR plus the host timer report (with the H.264
+decoder's `h264.entropy` span). Scaling and pixel-format conversion (`-s`,
 `-pix_fmt`), audio resampling and filters (`-vf`, `-af`,
 `-filter_complex`) raise PATCHWELCOME naming their steps.
 """
@@ -639,7 +644,11 @@ class _VideoChain:
         self.out_par.width = self.out_par.width or frame.width
         self.out_par.height = self.out_par.height or frame.height
         self.out_par.pix_fmt = self.spec.pix_fmt or frame.format
-        self.enc = find_encoder(self.enc_name)(self.out_par)
+        cls = find_encoder(self.enc_name)
+        # device encoders run where the decoders do: decoded frames reach
+        # them as tensors on that device
+        self.enc = cls(self.out_par, device=self.o.device) \
+            if cls.DEVICE_PART else cls(self.out_par)
         _set_enc_opts(self.enc, self.enc_opts, self.o)
         self.enc.open()
 

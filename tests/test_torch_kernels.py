@@ -191,6 +191,35 @@ class TestKernelsOnCard:
         assert torch.equal(got, tidct.idct8x8_int_cm_plain(xT))
         assert torch.equal(got.T.reshape(B, 8, 8), tidct.idct8x8_int(x))
 
+    @pytest.mark.parametrize("b_frames", [0, 2])
+    def test_mpeg4_encode(self, b_frames):
+        """The MPEG-4 encoder on the card gives the CPU's packets, with one
+        K2 launch per anchor (I/P VOP)."""
+        from libav_tpu_torch.avutil.frame import Frame
+        from libav_tpu_torch.codecs.api import CodecParameters, MediaType
+        from libav_tpu_torch.codecs.mpeg4 import MPEG4Encoder
+        w, h, n = 80, 48, 6
+        frames = []
+        for t in range(n):
+            f = Frame(width=w, height=h, format="yuv420p")
+            yy, xx = np.mgrid[0:h, 0:w]
+            f.planes = [((xx // 2 + yy // 3 + 4 * t) % 256).astype(np.uint8),
+                        np.full((h // 2, w // 2), 100 + t, np.uint8),
+                        np.full((h // 2, w // 2), 140 - t, np.uint8)]
+            f.pts = t
+            frames.append(f)
+        par = CodecParameters(codec_type=MediaType.VIDEO, codec_id="mpeg4",
+                              width=w, height=h, pix_fmt="yuv420p")
+        out = {}
+        for dev in ("cpu", "cuda"):
+            enc = MPEG4Encoder(par, device=dev)
+            enc.set_opt("b_frames", b_frames)
+            before = tidct.idct8x8_int.launches
+            out[dev] = [p.data for p in enc.encode_all(frames)]
+            launches = tidct.idct8x8_int.launches - before
+        assert out["cuda"] == out["cpu"]
+        assert launches == (n if b_frames == 0 else 3)
+
     @pytest.mark.parametrize("B", [1, 127, 128, 513, 49152])
     def test_edge_filter_pm(self, B):
         """P2, qp 0-51 and bS 0-4."""

@@ -262,9 +262,14 @@ def test_zero_pad_refs():
     _eq_tree(got, jmv.zero_pad_refs(3, 2))
 
 
-@pytest.mark.parametrize("flags", [dict(quant_kind="h263"),
-                                   dict(qpel=True), dict(any_4mv=True)])
+@pytest.mark.parametrize("flags", [dict(quant_kind="h263sh"),
+                                   dict(qpel=True), dict(any_4mv=True),
+                                   dict(quant_kind="wmv1"),
+                                   dict(quant_kind="mpeg4"),
+                                   dict(quant_kind="mpeg4mq")])
 def test_mpeg4_family_is_refused(flags):
+    """The H.263/MPEG-4 quantisers but 'h263' (ported with the MPEG-4
+    encoder, tests/test_torch_mpeg4_encode.py), qpel and 4MV."""
     key = dict(quant_kind="mpeg2", alt_scan=False, inter_frame=True)
     key.update(flags)
     with pytest.raises(NotImplementedError, match="step 8b"):

@@ -65,8 +65,17 @@ def test_source_imports_no_jax_package(source):
 
 
 def test_sources_cover_the_port():
+    """The scan is a glob, not a list: every module of the port is in it,
+    those of each slice included."""
     assert len(SOURCES) > 40
-    assert "libav_tpu_torch/codecs/h264/dec.py" in SOURCES
+    for path in ("codecs/h264/dec.py", "codecs/mpeg4/enc.py",
+                 "codecs/mpeg4/dec.py", "codecs/mpeg4/tables.py",
+                 "codecs/trellis.py", "codecs/ratecontrol.py",
+                 "avutil/eval.py", "formats/m4v.py", "ops/me.py",
+                 "ops/fdct.py"):
+        assert "libav_tpu_torch/" + path in SOURCES
+    on_disk = glob.glob(os.path.join(REPO, "libav_tpu_torch", "*", "*.py"))
+    assert len(SOURCES) > len(on_disk)
     assert not os.path.exists(os.path.join(REPO, "libav_tpu_torch",
                                            "hostcode.py"))
 
@@ -104,6 +113,30 @@ print(json.dumps(out))
                        text=True, timeout=600, cwd=str(tmp_path))
     assert r.returncode == 0, r.stderr[-3000:]
     assert json.loads(r.stdout.strip().splitlines()[-1]) == want
+
+
+def test_transcode_with_jax_package_refused(inputs, tmp_path):  # noqa: F811
+    """The port's avconv transcodes MPEG-2 to MPEG-4 in a process where
+    jax and libav_tpu cannot be imported: the JAX CLI's bytes."""
+    argv = ["-i", inputs["m2v"], "-c:v", "mpeg4", "-q:v", "6", "-g", "12",
+            "-bf", "2", "-f", "m4v"]
+    want = str(tmp_path / "jax.m4v")
+    assert jax_avconv.main(argv + [want]) == 0
+    code = IMPORT_GUARD + f"""
+import torch
+torch.set_num_threads(1)
+from libav_tpu_torch.tools import avconv
+assert avconv.main({argv!r} + ["port.m4v"], device="cpu") == 0
+loaded = sorted(m for m, v in sys.modules.items() if v is not None
+                and m.split(".")[0] in {REFUSED!r})
+assert loaded == [], loaded
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600, cwd=str(tmp_path))
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]
+    with open(want, "rb") as f, open(tmp_path / "port.m4v", "rb") as g:
+        assert g.read() == f.read()
 
 
 def test_guard_refuses(tmp_path):

@@ -4,8 +4,8 @@ mode) and the numpy references, and the port's avconv and avprobe on
 the CPU against `libav_tpu.tools.avconv` / `avprobe`, byte for byte.
 
 Inputs: the committed 64x64 H.264 file, a 64x48 MPEG-2 IPB stream and
-two small JPEGs written by the JAX package's encoders. All comparisons
-are exact.
+two small JPEGs written by the JAX package's encoders; the MPEG-2 stream
+is also transcoded to MPEG-4 by both CLIs. All comparisons are exact.
 """
 
 import contextlib
@@ -27,6 +27,7 @@ from libav_tpu.tools import pallas_probe
 from libav_tpu_torch import testdata
 from libav_tpu_torch.avutil.error import AVError
 from libav_tpu_torch.codecs import find_decoder, mpeg12
+from libav_tpu_torch.formats import m4v
 from libav_tpu_torch.ops import h264deblock as tdb
 from libav_tpu_torch.ops import idct as tidct
 from libav_tpu_torch.tools import avconv, avprobe, kernel_probe
@@ -172,6 +173,40 @@ def test_unported_parts_name_their_step(opts, step, inputs, tmp_path,
     assert avconv.main(argv, device="cpu") == 1
     err = capsys.readouterr().err
     assert step in err and "libav_tpu_torch" in err
+
+
+def test_avconv_mpeg4_transcode_matches_jax(inputs, tmp_path, capsys):
+    """MPEG-2 in, MPEG-4 out through both CLIs: the same bytes. The H.264
+    encoder is still refused, naming its step."""
+    argv = ["-i", inputs["m2v"], "-c:v", "mpeg4", "-bf", "2", "-f", "m4v"]
+    out = {}
+    for name, tool, kw in (("jax", jax_avconv, {}),
+                           ("port", avconv, {"device": "cpu"})):
+        out[name] = str(tmp_path / f"{name}.m4v")
+        assert tool.main(argv + [out[name]], **kw) == 0
+    with open(out["jax"], "rb") as f, open(out["port"], "rb") as g:
+        want, got = f.read(), g.read()
+    assert got == want
+    # coding order: I, then P B B twice (vop_coding_type 0 I, 1 P, 2 B)
+    assert [m4v.M4VDemuxer._vop_type(c) for c in m4v.split_vops(got)] == \
+        [0, 1, 2, 2, 1, 2, 2]
+    capsys.readouterr()
+    assert avconv.main(["-i", inputs["m2v"], "-c:v", "h264",
+                        str(tmp_path / "o.avi")], device="cpu") == 1
+    err = capsys.readouterr().err
+    assert "Encoder not found" in err and "step 7" in err
+
+
+def test_avconv_mpeg4_to_avi_matches_jax(inputs, tmp_path):
+    """The AVI muxer tags the port's MPEG-4 stream FMP4, as the JAX one
+    does: the two files are the same bytes."""
+    argv = ["-i", inputs["m2v"], "-c:v", "mpeg4", "-g", "3"]
+    assert jax_avconv.main(argv + [str(tmp_path / "jax.avi")]) == 0
+    assert avconv.main(argv + [str(tmp_path / "port.avi")],
+                       device="cpu") == 0
+    want = (tmp_path / "jax.avi").read_bytes()
+    assert (tmp_path / "port.avi").read_bytes() == want
+    assert b"FMP4" in want
 
 
 def test_unported_decoders_name_their_step():

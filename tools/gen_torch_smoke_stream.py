@@ -22,14 +22,19 @@ package's decoder, and written with its golden into
             stream written as a CLI input file (testdata.write_cli_input);
             and mpeg2_1080p_ipbb.show_frames, the frame section of
             `libav_tpu.tools.avprobe -show_frames` on that input
+    mpeg4   mpeg4_1080p_from_ipbb.golden.json: mpeg2_1080p_ipbb decoded
+            and encoded with the MPEG-4 encoder (testdata.MPEG4_SETTINGS),
+            each packet's size and md5 and each anchor's reconstruction;
+            and the md5 of `libav_tpu.tools.avconv -i ipbb.m2v
+            <testdata.MPEG4_CLI_ARGS> out.m4v`
 
 The machine with the GPU has no jax, so the port's smoke run reads these
 files instead of encoding. Run from the repository root (no argument
 writes all of them; the H.264 stream takes ~80 s, each MPEG-2 one ~25 s;
-framecrc needs the streams written first):
+framecrc and mpeg4 need the streams written first):
 
     JAX_PLATFORMS=cpu python tools/gen_torch_smoke_stream.py \
-        [h264] [mpeg2] [mjpeg] [small] [framecrc]
+        [h264] [mpeg2] [mjpeg] [small] [framecrc] [mpeg4]
 """
 
 from __future__ import annotations
@@ -135,6 +140,69 @@ def write_framecrc(name: str, show_frames: bool = False):
     print(f"{name}.framecrc written")
 
 
+def encode_mpeg4(frames, settings):
+    """frames through the JAX package's MPEG-4 encoder: (packet bytes,
+    the anchors' reconstructed coded (Y, U, V) planes in coding order)."""
+    from libav_tpu.codecs.api import CodecParameters, MediaType, find_encoder
+    from libav_tpu.ops.mc import EDGE
+    f0 = frames[0]
+    enc = find_encoder("mpeg4")(CodecParameters(
+        codec_type=MediaType.VIDEO, codec_id="mpeg4", width=f0.width,
+        height=f0.height, pix_fmt="yuv420p"))
+    for k, v in settings.items():
+        enc.set_opt(k, v)
+    anchors = []
+    code_anchor = enc._code_anchor
+
+    def recorded(*args):
+        pkt = code_anchor(*args)
+        anchors.append([np.asarray(p)[EDGE:-EDGE, EDGE:-EDGE]
+                        for p in enc._refs])
+        return pkt
+    enc._code_anchor = recorded
+    return [p.data for p in enc.encode_all(frames)], anchors
+
+
+def write_mpeg4():
+    """The MPEG-4 encode of the IPB stream's decoded frames, and the JAX
+    CLI's transcode of that stream as a file: digests only."""
+    import hashlib
+    from libav_tpu.avutil.frame import Packet
+    from libav_tpu.codecs.api import CodecParameters, MediaType, find_decoder
+    from libav_tpu.tools import avconv
+    name = testdata.MPEG4_SOURCE
+    dec = find_decoder("mpeg2video")(CodecParameters(
+        codec_type=MediaType.VIDEO, codec_id="mpeg2video"))
+    frames = dec.decode_all(Packet(data=d, pts=i) for i, d in
+                            enumerate(testdata.read_packets(
+                                testdata.stream_paths(name)[0])))
+    datas, anchors = encode_mpeg4(frames, testdata.MPEG4_SETTINGS)
+    work = tempfile.mkdtemp()
+    try:
+        out = os.path.join(work, "out.m4v")
+        argv = ["-i", testdata.write_cli_input(name, work),
+                *testdata.MPEG4_CLI_ARGS, out]
+        if avconv.main(argv) != 0:
+            raise SystemExit("avconv -c:v mpeg4 failed")
+        with open(out, "rb") as f:
+            cli = f.read()
+    finally:
+        shutil.rmtree(work)
+    gold = {"source": name, "settings": testdata.MPEG4_SETTINGS,
+            "packets": [{"size": len(d), "md5": hashlib.md5(d).hexdigest()}
+                        for d in datas],
+            "anchors": testdata.digest(anchors)["frames"],
+            "cli": {"args": list(testdata.MPEG4_CLI_ARGS), "size": len(cli),
+                    "md5": hashlib.md5(cli).hexdigest()}}
+    with open(testdata.mpeg4_golden_path(), "w") as f:
+        json.dump(gold, f, indent=1)
+        f.write("\n")
+    print(f"{testdata.MPEG4_SMOKE}: {len(datas)} packets, "
+          f"{sum(len(d) for d in datas)} bytes, {len(anchors)} anchors; CLI "
+          f"{len(cli)} bytes, {'same' if cli == b''.join(datas) else 'other'}"
+          f" bytes than the packets")
+
+
 def main(which):
     if "h264" in which:
         write(testdata.SMOKE_STREAM, testdata.SMOKE_GOLDEN,
@@ -154,7 +222,10 @@ def main(which):
     if "framecrc" in which:
         for name in testdata.CLI_INPUTS:
             write_framecrc(name, show_frames=name == "mpeg2_1080p_ipbb")
+    if "mpeg4" in which:
+        write_mpeg4()
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ("h264", "mpeg2", "mjpeg", "small", "framecrc"))
+    main(sys.argv[1:] or ("h264", "mpeg2", "mjpeg", "small", "framecrc",
+                          "mpeg4"))
