@@ -83,7 +83,20 @@ Phases, in order; any failure exits nonzero and prints no result:
      through `libav_tpu_torch/tools/encode_probe.py`;
  11. the transcode CLI: the port's avconv `-benchmark -i ipbb.m2v -c:v
      mpeg4 -q:v 6 -g 12 -bf 2 -f m4v out.m4v`, its output md5-identical to
-     the JAX CLI's, K2 launched 7 + 3 times; its fps beside phase 10's.
+     the JAX CLI's, K2 launched 7 + 3 times; its fps beside phase 10's;
+ 12. the config-5 chain: kernel sws_yuv2rgb against its plain version on
+     the 12 decoded 1080p frames (the bench stream's 8, limited range, and
+     the MJPEG stream's 4, full range; rgb24 and bgr24), byte for byte,
+     with its time per call, its device time warm and cold and its bound;
+     then, with the launch count set to 0, the port's avconv `-benchmark
+     -f framecrc` with `-pix_fmt rgb24` on bench.h264 and frames.mjpeg and
+     `-s 1280x720` on bench.h264, each byte-identical to the JAX CLI's
+     committed framecrc, with one sws_yuv2rgb launch per rgb24 frame; and
+     `-ar 44100 -ac 2 -f s16le` on the committed 10 s AC-3 5.0 and stereo
+     streams (md5-identical to the JAX CLI's) and `-ar 44100 -f s16le` on
+     the 5 s AAC-LC stream (every sample within 1 LSB of the JAX CLI's
+     committed PCM; the count that differ and the IMDCT calls on the card
+     printed), each with its realtime factor.
 The last two lines are the kernels' JSON record and the result JSON.
 """
 
@@ -113,6 +126,8 @@ NO_LIBRARY = {
                "alpha/beta tests, strong or normal filter)",
     "idct": "none: the IDCT must wrap in int32 bit-exactly (int16 row "
             "stores, per-row DC shortcut); a float matmul does not",
+    "yuv2rgb": "none: no single PyTorch call does upsample + BT.601 + "
+               "round-half-even + interleave",
 }
 
 
@@ -1008,6 +1023,147 @@ def phase_transcode(dev, card, mpeg4):
     return launches
 
 
+def phase_config5_kernel(dev, card):
+    """sws_yuv2rgb against its plain version on the 12 decoded 1080p
+    frames (8 of the bench stream, limited range 4:2:0, and 4 of the
+    MJPEG stream, full range), byte for byte; its times on the first."""
+    import torch
+    from libav_tpu_torch import testdata
+    from libav_tpu_torch.avutil.frame import Packet
+    from libav_tpu_torch.codecs.mjpeg import MJPEGDecoder
+    from libav_tpu_torch.swscale import yuv2rgb as y2r
+    host, _, _ = decode(dev, testdata.read_packets(testdata.SMOKE_STREAM))
+    frames = [([torch.as_tensor(p).to(dev) for p in planes], False)
+              for planes in host]
+    mjpeg = MJPEGDecoder(device=dev).decode_all(
+        Packet(data=d, pts=i) for i, d in enumerate(testdata.read_packets(
+            testdata.stream_paths(testdata.MJPEG_SMOKE)[0])))
+    frames += [(f.planes, True) for f in mjpeg]
+    for i, ((y, u, v), full) in enumerate(frames):
+        for bgr in (False, True):
+            got = y2r.yuv2rgb(y, u, v, 1, 1, full, bgr)
+            torch.cuda.synchronize(dev)
+            want = y2r.yuv2rgb_plain(y, u, v, 1, 1, full, bgr)
+            if not torch.equal(got, want):
+                n = int((got != want).sum())
+                raise AssertionError(f"sws_yuv2rgb frame {i} (full range "
+                                     f"{full}, bgr {bgr}): {n} bytes differ "
+                                     f"from the plain version")
+    r = {"frames": len(frames), "max_abs_err": 0}
+    for label, ((y, u, v), full) in (("limited", frames[0]),
+                                     ("full", frames[-1])):
+        out = torch.empty((y.shape[0], 3 * y.shape[1]), dtype=torch.uint8,
+                          device=dev)
+        bound, nbytes = bound_ms(y, u, v, out)
+        t = {"ms": event_ms(lambda: y2r.yuv2rgb(y, u, v, 1, 1, full)),
+             "plain_ms": event_ms(
+                 lambda: y2r.yuv2rgb_plain(y, u, v, 1, 1, full)),
+             "device_ms": kernel_device_ms(
+                 lambda: y2r.yuv2rgb(y, u, v, 1, 1, full), "yuv2rgb_kernel"),
+             "cold_device_ms": kernel_device_ms(
+                 lambda: y2r.yuv2rgb(y, u, v, 1, 1, full), "yuv2rgb_kernel",
+                 cold=True),
+             "bound_ms": bound, "bytes": nbytes}
+        r[label] = t
+        log(f"phase 12 sws_yuv2rgb 1920x1080 yuv420p -> rgb24 ({label} "
+            f"range): {t['ms']:.4f} ms per call, device {t['device_ms']:.4f}"
+            f" ms warm, {t['cold_device_ms']:.4f} ms cold; bound "
+            f"{t['bound_ms']:.5f} ms ({nbytes} bytes), "
+            f"{100 * t['bound_ms'] / t['cold_device_ms']:.1f}% of it cold, "
+            f"{100 * t['bound_ms'] / t['device_ms']:.1f}% warm; plain "
+            f"{t['plain_ms']:.3f} ms [{card}]")
+    log(f"phase 12 sws_yuv2rgb equal to its plain version on all "
+        f"{len(frames)} decoded frames, rgb24 and bgr24")
+    return r
+
+
+def phase_config5(dev, card):
+    """The config-5 chain through the port's avconv: -pix_fmt rgb24 and
+    -s on the committed video streams, -ar 44100 [-ac 2] on the AC-3 and
+    AAC streams; each against the JAX CLI's committed output. The counts
+    of sws_yuv2rgb launches and AAC IMDCT calls are this run's."""
+    import hashlib
+    import zlib
+    import numpy as np
+    from libav_tpu_torch import testdata
+    from libav_tpu_torch.ops import fftmdct
+    from libav_tpu_torch.swscale import yuv2rgb as y2r
+    from libav_tpu_torch.tools import avconv
+    gold = testdata.load_golden(testdata.config5_golden_path())
+    nframes = {name: len(testdata.load_golden(
+        testdata.stream_paths(name)[1])["frames"])
+        for name, _ in testdata.VIDEO_RUNS.values()}
+    work = tempfile.mkdtemp()
+    r = {"audio": {}}
+    try:
+        y2r.yuv2rgb.launches = 0
+        for run, (name, args) in testdata.VIDEO_RUNS.items():
+            inp = testdata.write_cli_input(name, work)
+            out = os.path.join(work, run + ".framecrc")
+            before = y2r.yuv2rgb.launches
+            _, err, seconds = run_cli(avconv, ["-benchmark", "-i", inp, *args,
+                                               "-f", "framecrc", out], dev)
+            with open(out, "rb") as f,                     open(testdata.video_run_path(run), "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"avconv {run}: framecrc differs "
+                                         f"from the JAX CLI's")
+            launched = y2r.yuv2rgb.launches - before
+            want = nframes[name] if "rgb24" in args else 0
+            if launched != want:
+                raise AssertionError(f"avconv {run}: {launched} sws_yuv2rgb "
+                                     f"launches, expected {want}")
+            fps = float(re.search(r"fps=([0-9.]+)", err).group(1))
+            log(f"phase 12 avconv -benchmark -i {os.path.basename(inp)} "
+                f"{' '.join(args)} -f framecrc: byte-identical to the JAX "
+                f"CLI's, {launched} sws_yuv2rgb launches; {fps} fps "
+                f"({seconds:.2f} s wall) [{card}]")
+        r["launches"] = y2r.yuv2rgb.launches
+        for name, args in testdata.AUDIO_RUNS.items():
+            codec, secs = testdata.AUDIO_STREAMS[name][:2]
+            out = os.path.join(work, name + ".raw")
+            fftmdct.imdct.calls = 0
+            _, _, seconds = run_cli(avconv, ["-i", testdata.audio_path(name),
+                                             *args, out], dev)
+            calls = fftmdct.imdct.calls
+            with open(out, "rb") as f:
+                pcm = f.read()
+            want = gold["audio"][name]
+            line = (f"phase 12 avconv -i {os.path.basename(testdata.audio_path(name))}"
+                    f" {' '.join(args)}: {len(pcm)} bytes")
+            if name in testdata.AUDIO_PCM_KEPT:
+                with open(testdata.pcm_golden_path(name), "rb") as f:
+                    ref = np.frombuffer(zlib.decompress(f.read()), np.int16)
+                got = np.frombuffer(pcm, np.int16)
+                if got.shape != ref.shape:
+                    raise AssertionError(f"avconv {name}: {got.size} "
+                                         f"samples, the JAX CLI wrote "
+                                         f"{ref.size}")
+                diff = np.abs(got.astype(np.int32) - ref)
+                ndiff = int((diff > 0).sum())
+                if diff.max() > 1:
+                    raise AssertionError(f"avconv {name}: a sample "
+                                         f"{int(diff.max())} LSB from the "
+                                         f"JAX CLI's")
+                if calls == 0:
+                    raise AssertionError(f"avconv {name}: no IMDCT call")
+                line += (f", every s16 sample within 1 LSB of the JAX CLI's,"
+                         f" {ndiff} of {ref.size} differ; {calls} IMDCT "
+                         f"calls on the card")
+                r["audio"][name] = {"differing": ndiff, "samples": ref.size,
+                                    "imdct_calls": calls}
+            else:
+                if hashlib.md5(pcm).hexdigest() != want["md5"]:
+                    raise AssertionError(f"avconv {name}: md5 differs from "
+                                         f"the JAX CLI's")
+                line += ", md5-identical to the JAX CLI's"
+            r["audio"].setdefault(name, {})["realtime"] = secs / seconds
+            log(f"{line}; {secs:g} s of {codec} audio in {seconds:.2f} s, "
+                f"{secs / seconds:.2f}x realtime [{card}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return r
+
+
 def probe_record(name, source, line, what, probe, l2, library):
     """The kernels-line entry of P1 or P2 from phase 7's results."""
     times = probe["times"]
@@ -1111,6 +1267,8 @@ def main():
                           "mjpeg_1080p": mjpeg_fps})
     mpeg4 = phase_mpeg4(dev, card)
     phase_transcode(dev, card, mpeg4)
+    y2r = phase_config5_kernel(dev, card)
+    config5 = phase_config5(dev, card)
     k2_paths = {"mpeg2 decodes": k2_launches, "mjpeg decode": mjpeg_launches,
                 "mpeg4 encode": mpeg4["launches"]}
 
@@ -1154,7 +1312,34 @@ def main():
                      probe["l2"]["P1"], NO_LIBRARY["idct"]),
         probe_record("h264_edge_filter_pm", "h264_deblock.cu", 114,
                      "49,152 lines as (8, B), qp 30", probe["deblock"],
-                     probe["l2"]["P2"], NO_LIBRARY["deblock"])],
+                     probe["l2"]["P2"], NO_LIBRARY["deblock"]),
+        {
+            "name": "sws_yuv2rgb",
+            "route": "cuda",
+            "source": "libav_tpu_torch/csrc/sws_yuv2rgb.cu",
+            "replaces": "libav_tpu/swscale/__init__.py:236",
+            "replaces_is": "an XLA-fused jit (_yuv_rgb_jit), not a Pallas "
+                           "kernel",
+            "launches": config5["launches"],
+            "max_abs_err": y2r["max_abs_err"],
+            "ms": y2r["limited"]["ms"],
+            "plain_ms": y2r["limited"]["plain_ms"],
+            "device_ms": y2r["limited"]["device_ms"],
+            "cold_device_ms": y2r["limited"]["cold_device_ms"],
+            "bound_ms": y2r["limited"]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "library": NO_LIBRARY["yuv2rgb"],
+            "ms_is": f"one 1920x1080 yuv420p frame of the bench stream to "
+                     f"rgb24 (limited range), per call by CUDA events; "
+                     f"device_ms by torch.profiler (cold_device_ms with the "
+                     f"L2 flushed between launches); bound: "
+                     f"{y2r['limited']['bytes']} bytes of planes in and "
+                     f"rgb24 out; launches: the config-5 CLI runs; full "
+                     f"range (MJPEG frame): {y2r['full']['ms']} ms, device "
+                     f"{y2r['full']['device_ms']} ms warm, "
+                     f"{y2r['full']['cold_device_ms']} ms cold",
+        }],
         "card": card}
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": info}))

@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 # C signatures: name -> argtypes (every function returns cudaError_t)
 SIGNATURES = {
     # lines, out, qp, bs, n, a_off, b_off, chroma, tab, stream
@@ -43,6 +43,10 @@ SIGNATURES = {
     # in, out, n, consts (host), stream
     "mpv_idct8x8": (_P, _P, _I, _P, _P),
     "mpv_idct8x8_cm": (_P, _P, _I, _P, _P),
+    # y, u, v, out, w, h, y/u/v row strides, log2 chroma w/h, bgr,
+    # consts (host), stream
+    "sws_yuv2rgb": (_P, _P, _P, _P, _I, _I, _L, _L, _L, _I, _I, _I, _P,
+                    _P),
 }
 
 

@@ -6,7 +6,8 @@ of the JAX package's host code, and their device halves are the port's
 PyTorch programs and hand kernels. Decoders take their torch device as a
 keyword: `find_decoder(codec_id)(params, device=...)`; so does an
 encoder with a device part (`DEVICE_PART`, the MPEG-4 encoder), whose
-device defaults to "cuda".
+device defaults to "cuda". The audio decoders (AAC with its IMDCT on the
+device, AC-3/E-AC-3 and PCM on the host) hand out host sample planes.
 """
 
 from libav_tpu_torch.codecs.api import (CodecContext, Decoder,  # noqa: F401
@@ -16,4 +17,4 @@ from libav_tpu_torch.codecs.api import (CodecContext, Decoder,  # noqa: F401
 
 # import for registration side effects
 from libav_tpu_torch.codecs import (h264, mjpeg, mpeg12,  # noqa: F401
-                                    mpeg4, rawvideo)  # noqa: F401
+                                    mpeg4, rawvideo, ac3, aac)  # noqa: F401

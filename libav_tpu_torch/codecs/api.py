@@ -72,18 +72,17 @@ _ENCODERS: Dict[str, Type["Encoder"]] = {}
 NOT_PORTED = {
     **dict.fromkeys(("mpeg4", "h263", "flv1", "msmpeg4", "msmpeg4v2",
                      "msmpeg4v3", "msmpeg4v4", "wmv1"), "8b"),
-    **dict.fromkeys(("aac", "ac3", "eac3", "mp1", "mp2", "mp2float", "mp3",
-                     "mp3float", "flac", "pcm_s16le", "pcm_s32le", "pcm_u8",
-                     "pcm_f32le", "pcm_f64le"), "10"),
+    **dict.fromkeys(("mp1", "mp2", "mp2float", "mp3", "mp3float", "flac"),
+                    "10b"),
     "prores": "11",
-    **dict.fromkeys(("rawvideo", "ffv1"), "15"),
+    "ffv1": "15",
 }
 
 # encoder id -> the ROADMAP.md module-queue step that ports its device part
 ENCODER_STEPS = {
     "h264": "7", "mpeg1video": "8b", "mpeg2video": "8b", "mjpeg": "9",
-    "aac": "10", "ac3": "10", "mp1": "10", "mp2": "10", "mp3": "10",
-    "flac": "10", "prores": "11", "ffv1": "15",
+    "aac": "10b", "ac3": "10b", "mp1": "10b", "mp2": "10b", "mp3": "10b",
+    "flac": "10b", "prores": "11", "ffv1": "15",
 }
 
 

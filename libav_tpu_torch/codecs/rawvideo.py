@@ -1,16 +1,41 @@
-"""rawvideo + PCM encoders (reference: libavcodec/rawenc.c, pcm.c) —
-Frame -> bytes packing, no entropy work. The decoders of these codecs
-are not on the port's table yet (ROADMAP.md module queue, steps 15 and
-10)."""
+"""rawvideo + PCM "codecs" (counterpart of `libav_tpu/codecs/rawvideo.py`;
+reference: libavcodec/rawdec.c/rawenc.c, pcm.c) — byte <-> Frame
+packing, no entropy work. The rawvideo decoder uploads its planes to the
+decoder's device, as the port's other video decoders leave theirs; the
+PCM decoders keep their samples on the host."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from libav_tpu_torch.avutil.frame import Frame, Packet, PKT_FLAG_KEY
-from libav_tpu_torch.avutil.imgutils import frame_to_bytes
+from libav_tpu_torch.avutil import hwdevice
+from libav_tpu_torch.avutil.frame import Frame, Packet, PictureType, PKT_FLAG_KEY
+from libav_tpu_torch.avutil.imgutils import bytes_to_frame, frame_to_bytes
 from libav_tpu_torch.avutil.samplefmt import is_planar
-from libav_tpu_torch.codecs.api import Encoder, MediaType, register_codec
+from libav_tpu_torch.codecs.api import (Decoder, Encoder, MediaType,
+                                        register_codec)
+
+
+@register_codec
+class RawVideoDecoder(Decoder):
+    NAME = "rawvideo"
+    TYPE = MediaType.VIDEO
+
+    def __init__(self, params=None, options=None, *, device):
+        """RawVideoDecoder(params, options, device=...) — the planes of
+        the output frames are tensors on `device`."""
+        super().__init__(params, options)
+        self.device = hwdevice.device(device)
+
+    def _decode(self, pkt: Packet):
+        f = bytes_to_frame(pkt.data, self.pix_fmt, self.width, self.height)
+        f.planes = [torch.tensor(p, device=self.device) for p in f.planes]
+        f.pts = pkt.pts
+        f.time_base = pkt.time_base
+        f.key_frame = True
+        f.pict_type = PictureType.I
+        return [f]
 
 
 @register_codec
@@ -26,7 +51,27 @@ class RawVideoEncoder(Encoder):
 
 
 def _make_pcm(name: str, fmt: str, dtype, scale=None):
-    """Generate a PCM encoder (reference: pcm.c PCM_CODEC)."""
+    """Generate a PCM decode/encode pair (reference: pcm.c PCM_CODEC)."""
+
+    class _Dec(Decoder):
+        NAME = name
+        TYPE = MediaType.AUDIO
+
+        def __init__(self, params=None, options=None, *, device):
+            super().__init__(params, options)
+            self.device = hwdevice.device(device)
+
+        def _decode(self, pkt: Packet):
+            arr = np.frombuffer(pkt.data, dtype=dtype)
+            ch = max(self.channels, 1)
+            ns = len(arr) // ch
+            f = Frame(nb_samples=ns, sample_rate=self.sample_rate,
+                      format=fmt, channels=ch,
+                      channel_layout=self.channel_layout)
+            f.planes = [arr[:ns * ch]]   # interleaved packed layout
+            f.pts = pkt.pts
+            f.time_base = pkt.time_base
+            return [f]
 
     class _Enc(Encoder):
         NAME = name
@@ -54,9 +99,11 @@ def _make_pcm(name: str, fmt: str, dtype, scale=None):
             return (arr.astype(dtype) / (info.max + 1)).astype(dtype)
         return arr.astype(dtype)
 
+    _Dec.__name__ = f"PCMDecoder_{name}"
     _Enc.__name__ = f"PCMEncoder_{name}"
+    register_codec(_Dec)
     register_codec(_Enc)
-    return _Enc
+    return _Dec, _Enc
 
 
 _make_pcm("pcm_s16le", "s16", np.dtype("<i2"))

@@ -69,6 +69,46 @@ MPEG4_CLI_ARGS = ("-c:v", "mpeg4", "-q:v", "6", "-g", "12", "-bf", "2",
                   "-f", "m4v")
 
 
+# the config-5 chain: name -> (codec, seconds, channels, encoder
+# options, signal seed) of a committed audio stream (the CLI's input
+# file as it is), the JAX CLI's arguments on each, and the video runs
+# (committed stream, arguments) whose framecrc the JAX CLI wrote
+AUDIO_STREAMS = {
+    "ac3_50_48k": ("ac3", 10.0, 5, {"bitrate_kbps": 384}, 50),
+    "ac3_20_48k": ("ac3", 10.0, 2, {"bitrate_kbps": 192}, 20),
+    "aac_lc_48k": ("aac", 5.0, 2, {"quality": 10}, 2),
+}
+AUDIO_EXT = {"ac3": ".ac3", "aac": ".aac"}
+AUDIO_RUNS = {
+    "ac3_50_48k": ("-ar", "44100", "-ac", "2", "-f", "s16le"),
+    "ac3_20_48k": ("-ar", "44100", "-ac", "2", "-f", "s16le"),
+    "aac_lc_48k": ("-ar", "44100", "-f", "s16le"),
+}
+# runs whose s16 output is kept (zlib) to count differing samples
+AUDIO_PCM_KEPT = ("aac_lc_48k",)
+VIDEO_RUNS = {
+    "h264_rgb24": ("h264_1080p_ipbb_cabac", ("-pix_fmt", "rgb24")),
+    "mjpeg_rgb24": (MJPEG_SMOKE, ("-pix_fmt", "rgb24")),
+    "h264_s1280x720": ("h264_1080p_ipbb_cabac", ("-s", "1280x720")),
+}
+
+
+def audio_path(name: str) -> str:
+    return os.path.join(HERE, name + AUDIO_EXT[AUDIO_STREAMS[name][0]])
+
+
+def pcm_golden_path(name: str) -> str:
+    return os.path.join(HERE, name + ".s16.zlib")
+
+
+def video_run_path(run: str) -> str:
+    return os.path.join(HERE, "config5_" + run + ".framecrc")
+
+
+def config5_golden_path() -> str:
+    return os.path.join(HERE, "config5.golden.json")
+
+
 def mpeg4_golden_path() -> str:
     return os.path.join(HERE, MPEG4_SMOKE + ".golden.json")
 

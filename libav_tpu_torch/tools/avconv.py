@@ -23,16 +23,20 @@ port's codec table and devices:
 run on CUDA and exit nonzero with a message where there is none;
 `main(argv, device="cpu")` runs the same path on the CPU. The decoders
 are the port's (H.264 with kernel K1, MPEG-1/2 and MJPEG with kernel K2)
-on that one device. The encoders are the host ones, rawvideo and PCM,
+on that one device, and so are the audio decoders (AAC with its IMDCT
+on the device; AC-3/E-AC-3 and PCM on the host) and rawvideo (planes
+uploaded to the device). `-s` and `-pix_fmt` run the port's swscale on
+the frames' device (YUV -> RGB through kernel `sws_yuv2rgb` on the
+card); `-ar`, `-ac` and `-sample_fmt` run the port's avresample on the
+host. The encoders are the host ones, rawvideo and PCM,
 and the MPEG-4 part 2 encoder (`-c:v mpeg4` with `-q:v`, `-g`, `-bf`
 and its pass-through options), whose device programs run on the same
 device: decoded frames reach it as tensors there, with no trip to the
 host. Any other encoder raises ENCODER_NOT_FOUND naming the ROADMAP.md
 step that ports its device part. `-prof DIR` writes a torch.profiler
 Chrome trace into DIR plus the host timer report (with the H.264
-decoder's `h264.entropy` span). Scaling and pixel-format conversion (`-s`,
-`-pix_fmt`), audio resampling and filters (`-vf`, `-af`,
-`-filter_complex`) raise PATCHWELCOME naming their steps.
+decoder's `h264.entropy` span). Filters (`-vf`, `-af`,
+`-filter_complex`) raise PATCHWELCOME naming their step.
 """
 
 from __future__ import annotations
@@ -51,11 +55,6 @@ from libav_tpu_torch.codecs.api import MediaType
 import libav_tpu_torch.codecs.rawvideo  # noqa: F401 (registration)
 from libav_tpu_torch.formats import FormatContext
 
-REFUSED_SCALE = ("scaling and pixel-format conversion (-s, -pix_fmt) are "
-                 "not ported to libav_tpu_torch yet (ROADMAP.md module "
-                 "queue, step 10)")
-REFUSED_RESAMPLE = ("audio resampling is not ported to libav_tpu_torch yet "
-                    "(ROADMAP.md module queue, step 10)")
 REFUSED_FILTERS = ("filters (-vf, -af, -filter_complex) are not ported to "
                    "libav_tpu_torch yet (ROADMAP.md module queue, step 12)")
 
@@ -734,7 +733,22 @@ class _VideoChain:
     def _scale(self, frame: Frame) -> Frame:
         spec = self.spec
         if spec.size or (spec.pix_fmt and spec.pix_fmt != frame.format):
-            raise AVError(PATCHWELCOME, REFUSED_SCALE)
+            from libav_tpu_torch.swscale import SwsContext
+            w = frame.width
+            h = frame.height
+            if spec.size:
+                w, h = (int(x) for x in spec.size.lower().split("x"))
+            dst_fmt = spec.pix_fmt or frame.format
+            from libav_tpu_torch import swscale as _sw
+            flg = {"bilinear": _sw.BILINEAR, "bicubic": _sw.BICUBIC,
+                   "neighbor": _sw.POINT, "point": _sw.POINT,
+                   "area": _sw.AREA, "lanczos": _sw.LANCZOS,
+                   "spline": getattr(_sw, "SPLINE", _sw.BICUBIC),
+                   }.get(getattr(spec, "sws_flags", None) or "bicubic",
+                         _sw.BICUBIC)
+            sws = SwsContext.get(frame.width, frame.height, frame.format,
+                                 w, h, dst_fmt, flags=flg)
+            frame = sws.scale_frame(frame)
         return frame
 
     def _encode_frame(self, frame: Frame):
@@ -870,7 +884,21 @@ class _AudioChain(_VideoChain):
                 or (spec.sample_fmt and spec.sample_fmt != frame.format))
         if not need:
             return [frame]
-        raise AVError(PATCHWELCOME, REFUSED_RESAMPLE)
+        if getattr(self, "_resampler", None) is None:
+            from libav_tpu_torch.avresample import AudioResampler
+            from libav_tpu_torch.avutil.samplefmt import \
+                default_channel_layout
+            self._resampler = AudioResampler(
+                in_sample_rate=frame.sample_rate,
+                out_sample_rate=spec.sample_rate or frame.sample_rate,
+                in_sample_fmt=frame.format,
+                out_sample_fmt=spec.sample_fmt or frame.format,
+                in_channel_layout=frame.channel_layout or
+                default_channel_layout(frame.channels),
+                out_channel_layout=default_channel_layout(
+                    spec.channels or frame.channels),
+            ).open()
+        return [self._resampler.convert(frame)]
 
     def _ensure_encoder(self, frame: Frame):
         if self.enc is not None or self.copy:

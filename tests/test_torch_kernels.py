@@ -19,6 +19,7 @@ import torch
 from libav_tpu_torch import testdata
 from libav_tpu_torch.ops import h264deblock as tdb
 from libav_tpu_torch.ops import idct as tidct
+from libav_tpu_torch.swscale import yuv2rgb as sws_yuv2rgb
 
 
 @pytest.fixture(autouse=True)
@@ -101,6 +102,14 @@ def test_wrappers_refuse_devices_without_a_kernel():
         tidct.idct8x8_int_cm(blocks.reshape(4, 64).T)
     with pytest.raises(ValueError, match="no kernel"):
         tdb.h264_edge_filter_pm(lines.T, v, v)
+
+
+def test_sws_yuv2rgb_refuses_devices_without_a_kernel():
+    meta = torch.device("meta")
+    y = torch.empty((4, 4), dtype=torch.uint8, device=meta)
+    c = torch.empty((2, 2), dtype=torch.uint8, device=meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        sws_yuv2rgb.yuv2rgb(y, c, c, 1, 1, False)
 
 
 _needs_cuda = [pytest.mark.cuda,
@@ -232,3 +241,50 @@ class TestKernelsOnCard:
         assert tdb.h264_edge_filter_pm.launches == before + 1
         assert torch.equal(got, tdb.edge_filter_pm_plain(xT, qp, bs))
         assert torch.equal(got.T, tdb.h264_edge_filter_lines(lines, qp, bs))
+
+    @pytest.mark.parametrize("sub", [(1, 1), (1, 0), (0, 0)])
+    @pytest.mark.parametrize("full", [False, True])
+    @pytest.mark.parametrize("bgr", [False, True])
+    @pytest.mark.parametrize("hw", [(1080, 1920), (37, 53)])
+    def test_sws_yuv2rgb(self, sub, full, bgr, hw):
+        """sws_yuv2rgb against its plain version, byte for byte, one
+        launch per call."""
+        dev = torch.device("cuda", 0)
+        (sw, sh), (h, w) = sub, hw
+        rng = np.random.default_rng(90 + h)
+        y = _t(rng.integers(0, 256, (h, w), dtype=np.uint8)).to(dev)
+        cshape = (-(-h >> sh), -(-w >> sw))
+        u, v = (_t(rng.integers(0, 256, cshape, dtype=np.uint8)).to(dev)
+                for _ in range(2))
+        before = sws_yuv2rgb.yuv2rgb.launches
+        got = sws_yuv2rgb.yuv2rgb(y, u, v, sw, sh, full, bgr)
+        torch.cuda.synchronize()
+        assert sws_yuv2rgb.yuv2rgb.launches == before + 1
+        want = sws_yuv2rgb.yuv2rgb_plain(y, u, v, sw, sh, full, bgr)
+        assert got.shape == (h, 3 * w) and torch.equal(got, want)
+
+    def test_sws_yuv2rgb_strided_planes(self):
+        """Cropped views (row stride > width) need no copy."""
+        dev = torch.device("cuda", 0)
+        rng = np.random.default_rng(95)
+        big = [_t(rng.integers(0, 256, s, dtype=np.uint8)).to(dev)
+               for s in ((64, 96), (32, 48), (32, 48))]
+        y, u, v = big[0][:50, :70], big[1][:25, :35], big[2][:25, :35]
+        got = sws_yuv2rgb.yuv2rgb(y, u, v, 1, 1, False)
+        want = sws_yuv2rgb.yuv2rgb_plain(y.contiguous(), u.contiguous(),
+                                         v.contiguous(), 1, 1, False)
+        assert torch.equal(got, want)
+
+    def test_imdct_on_card(self):
+        """fftmdct.imdct runs on the card in float32 (TF32 off) and agrees
+        with the CPU's float32 product to float32 rounding."""
+        from libav_tpu_torch.ops import fftmdct
+        rng = np.random.default_rng(96)
+        for shape in ((1, 1024), (8, 128)):
+            spec = _t(rng.standard_normal(shape).astype(np.float32) * 100)
+            calls = fftmdct.imdct.calls
+            got = fftmdct.imdct(spec.cuda())
+            assert got.device.type == "cuda" and got.dtype == torch.float32
+            assert fftmdct.imdct.calls == calls + 1
+            want = fftmdct.imdct(spec)
+            torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-4)

@@ -153,3 +153,55 @@ print("ok")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120, cwd=str(tmp_path))
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]
+
+
+def test_sources_cover_the_config5_chain():
+    for path in ("swscale/__init__.py", "swscale/bitexact.py",
+                 "swscale/packing.py", "swscale/yuv2rgb.py",
+                 "ops/fftmdct.py", "codecs/ac3/dec.py", "codecs/ac3/eac3.py",
+                 "codecs/aac/dec.py", "codecs/aac/sbr.py", "codecs/aac/ps.py",
+                 "avresample/__init__.py", "avresample/refexact.py",
+                 "avresample/mixmatrix.py", "avresample/dither.py",
+                 "formats/wav.py", "formats/pcmraw.py", "formats/ac3raw.py",
+                 "formats/aacraw.py", "formats/yuv4mpeg.py"):
+        assert "libav_tpu_torch/" + path in SOURCES
+    assert os.path.exists(os.path.join(REPO, "libav_tpu_torch", "csrc",
+                                       "sws_yuv2rgb.cu"))
+
+
+def test_config5_cli_with_jax_package_refused(tmp_path):
+    """The port's avconv runs the config-5 chain (AC-3 -> -ar 44100 -ac 2,
+    H.264 -> -pix_fmt rgb24 and -s) in a process where jax and libav_tpu
+    cannot be imported: the JAX CLI's bytes."""
+    from libav_tpu_torch import testdata
+    from tools.gen_torch_smoke_stream import audio_signal, encode_audio
+    ac3 = str(tmp_path / "in.ac3")
+    with open(ac3, "wb") as f:
+        f.write(encode_audio("ac3", audio_signal(0.25, 5, 3),
+                             {"bitrate_kbps": 384}))
+    runs = {"ac3.raw": ["-i", ac3, "-ar", "44100", "-ac", "2", "-f",
+                        "s16le"],
+            "rgb.crc": ["-i", testdata.SMALL_H264, "-pix_fmt", "rgb24",
+                        "-f", "framecrc"],
+            "s.crc": ["-i", testdata.SMALL_H264, "-s", "48x32", "-f",
+                      "framecrc"]}
+    want = {}
+    for name, argv in runs.items():
+        assert jax_avconv.main(argv + [str(tmp_path / ("jax_" + name))]) == 0
+        want[name] = (tmp_path / ("jax_" + name)).read_bytes()
+    code = IMPORT_GUARD + f"""
+import torch
+torch.set_num_threads(1)
+from libav_tpu_torch.tools import avconv
+for name, argv in {runs!r}.items():
+    assert avconv.main(argv + ["port_" + name], device="cpu") == 0
+loaded = sorted(m for m, v in sys.modules.items() if v is not None
+                and m.split(".")[0] in {REFUSED!r})
+assert loaded == [], loaded
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600, cwd=str(tmp_path))
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]
+    for name in runs:
+        assert (tmp_path / ("port_" + name)).read_bytes() == want[name]

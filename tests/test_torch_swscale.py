@@ -1,0 +1,213 @@
+"""The port's swscale against the JAX package's, on the CPU: the plain
+version of kernel `sws_yuv2rgb` against `_yuv_rgb_jit` (XLA), the
+bit-exact plane scaler against `scale_plane_jit`, RGB -> YUV, whole
+frames through `SwsContext.scale_frame`, the yuv4mpeg container and the
+rawvideo decoder, and the port's avconv `-pix_fmt`/`-s` against the JAX
+CLI. The same numpy inputs, made from a seed, go to both packages.
+
+Every comparison is exact but one: RGB -> 4:2:2 limited range, where
+XLA's CPU code rounds a few chroma samples of a 1080-line frame another
+way than the forms the port writes out (ROADMAP.md §3); there each
+sample is within 1 and at most 1 in 100,000 differ.
+"""
+
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+from libav_tpu import swscale as jsw
+from libav_tpu.avutil.frame import Frame as JFrame
+from libav_tpu.formats.api import open_input as jax_open_input
+from libav_tpu.swscale.bitexact import scale_plane_jit
+from libav_tpu.tools import avconv as jax_avconv
+from libav_tpu_torch import swscale as tsw
+from libav_tpu_torch import testdata
+from libav_tpu_torch.avutil.frame import Frame
+from libav_tpu_torch.formats.api import open_input
+from libav_tpu_torch.swscale.bitexact import scale_plane
+from libav_tpu_torch.swscale.yuv2rgb import yuv2rgb, yuv2rgb_plain
+from libav_tpu_torch.tools import avconv
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    # Tier-1 runs 6 xdist workers on 8 CPUs
+    torch.set_num_threads(1)
+
+
+SUBSAMPLING = {"420": (1, 1), "422": (1, 0), "444": (0, 0)}
+
+
+def _planes(seed, h, w, sw, sh):
+    rng = np.random.default_rng(seed)
+    ch, cw = -(-h >> sh), -(-w >> sw)
+    return (rng.integers(0, 256, (h, w), dtype=np.uint8),
+            rng.integers(0, 256, (ch, cw), dtype=np.uint8),
+            rng.integers(0, 256, (ch, cw), dtype=np.uint8))
+
+
+@pytest.mark.parametrize("out_fmt", ["rgb24", "bgr24"])
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("sub", list(SUBSAMPLING))
+@pytest.mark.parametrize("hw", [(1080, 1920), (37, 53), (97, 71)])
+def test_yuv2rgb_matches_xla(hw, sub, full, out_fmt):
+    """SwsContext._yuv_to_rgb of both packages on the same planes: 0
+    differing bytes."""
+    (h, w), (sw, sh) = hw, SUBSAMPLING[sub]
+    src_fmt = ("yuvj" if full else "yuv") + sub + "p"
+    planes = _planes(h + 7 * sw + 3 * sh, h, w, sw, sh)
+    want = jsw.SwsContext(w, h, src_fmt, w, h, out_fmt)._yuv_to_rgb(
+        list(planes), src_fmt, out_fmt, "tv")[0]
+    got = tsw.SwsContext(w, h, src_fmt, w, h, out_fmt)._yuv_to_rgb(
+        [torch.from_numpy(p) for p in planes], src_fmt, out_fmt, "tv")[0]
+    assert got.dtype == torch.uint8 and got.shape == (h, 3 * w)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_yuv2rgb_wrapper_takes_plain_version_on_cpu():
+    y, u, v = (torch.from_numpy(p) for p in _planes(5, 16, 24, 1, 1))
+    before = yuv2rgb.launches
+    assert torch.equal(yuv2rgb(y, u, v, 1, 1, True, True),
+                       yuv2rgb_plain(y, u, v, 1, 1, True, True))
+    assert yuv2rgb.launches == before
+
+
+@pytest.mark.parametrize("direction", ["down", "up"])
+@pytest.mark.parametrize("algo", sorted(
+    set(tsw.SwsContext._ALGO_OF_FLAG.values())))
+def test_plane_scaler_matches_jax(algo, direction):
+    """The bit-exact scaler's torch program against scale_plane_jit."""
+    sw_, sh_, dw, dh = (64, 48, 40, 30) if direction == "down" else \
+        (37, 29, 80, 61)
+    rng = np.random.default_rng(len(algo))
+    plane = rng.integers(0, 256, (sh_, sw_), dtype=np.uint8)
+    want = np.asarray(scale_plane_jit(sw_, sh_, dw, dh, algo)(plane))
+    got = scale_plane(sw_, sh_, dw, dh, algo, "cpu")(torch.from_numpy(plane))
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dst_fmt", ["yuv444p", "yuvj444p", "yuv422p",
+                                     "yuvj422p", "yuv420p", "yuvj420p"])
+@pytest.mark.parametrize("hw", [(1080, 1920), (37, 53)])
+def test_rgb_to_yuv_matches_xla(hw, dst_fmt):
+    h, w = hw
+    rng = np.random.default_rng(h + len(dst_fmt))
+    rgb = rng.integers(0, 256, (h, 3 * w), dtype=np.uint8)
+    want = jsw.SwsContext(w, h, "rgb24", w, h, dst_fmt)._rgb_to_yuv(
+        [rgb], "rgb24", dst_fmt)
+    got = tsw.SwsContext(w, h, "rgb24", w, h, dst_fmt)._rgb_to_yuv(
+        [torch.from_numpy(rgb)], "rgb24", dst_fmt)
+    for a, b in zip(want, got):
+        a, b = np.asarray(a).astype(int), b.numpy().astype(int)
+        assert a.shape == b.shape
+        if dst_fmt == "yuv422p":
+            assert np.abs(a - b).max() <= 1
+            assert (a != b).sum() <= max(1, a.size // 100000)
+        else:
+            np.testing.assert_array_equal(b, a)
+
+
+FRAME_CASES = [
+    ("yuv420p", "yuv444p", None), ("yuv420p", "yuv420p", (40, 30)),
+    ("yuv420p", "gray", None), ("gray", "yuv420p", (24, 18)),
+    ("rgb24", "bgra", None), ("rgba", "rgb24", (30, 20)),
+    ("yuv420p", "nv12", None), ("yuvj422p", "rgb24", None),
+    ("rgb24", "yuvj420p", None), ("yuv444p", "bgr24", None),
+]
+
+
+@pytest.mark.parametrize("src_fmt,dst_fmt,size", FRAME_CASES)
+def test_scale_frame_matches_jax(src_fmt, dst_fmt, size):
+    """Whole frames through both SwsContexts (scaling, gray, the host
+    RGB reorder and the packing layer): the same planes."""
+    w, h = 48, 36
+    dw, dh = size or (w, h)
+    src = JFrame.alloc_video(w, h, src_fmt)
+    rng = np.random.default_rng(len(src_fmt + dst_fmt))
+    src.planes = [rng.integers(0, 256, p.shape, dtype=np.uint8)
+                  for p in src.planes]
+    want = jsw.SwsContext(w, h, src_fmt, dw, dh, dst_fmt).scale_frame(src)
+    frame = Frame(width=w, height=h, format=src_fmt)
+    frame.planes = [torch.from_numpy(p) for p in src.planes]
+    got = tsw.SwsContext(w, h, src_fmt, dw, dh, dst_fmt).scale_frame(frame)
+    assert (got.width, got.height, got.format, got.color_range) == \
+        (want.width, want.height, want.format, want.color_range)
+    assert len(got.planes) == len(want.planes)
+    for a, b in zip(want.planes, got.to_host().planes):
+        np.testing.assert_array_equal(b, np.asarray(a))
+
+
+# ---------------------------------------------------------------------- #
+# yuv4mpeg, rawvideo and the CLI
+# ---------------------------------------------------------------------- #
+
+def _framecrc(tool, src, dst, *opts, **kw):
+    assert tool.main(["-i", src, *opts, "-f", "framecrc", dst], **kw) == 0
+    with open(dst) as f:
+        return f.read()
+
+
+@pytest.fixture(scope="module")
+def y4m(tmp_path_factory):
+    """The committed 64x64 H.264 file as a yuv4mpeg file, by the JAX
+    CLI."""
+    path = str(tmp_path_factory.mktemp("y4m") / "small.y4m")
+    assert jax_avconv.main(["-i", testdata.SMALL_H264, "-f",
+                            "yuv4mpegpipe", path]) == 0
+    return path
+
+
+def _packets(fc):
+    out = []
+    while True:
+        try:
+            pkt = fc.read_frame()
+        except Exception:
+            return out
+        if pkt is None:
+            return out
+        out.append((pkt.data, pkt.pts))
+
+
+def test_yuv4mpeg_demux_matches_jax(y4m):
+    want = _packets(jax_open_input(y4m))
+    got = _packets(open_input(y4m))
+    assert len(want) == 4 and got == want
+
+
+def test_rawvideo_decoder_uploads_to_its_device(y4m):
+    from libav_tpu_torch.codecs import find_decoder
+    fc = open_input(y4m)
+    par = fc.streams[0].codecpar
+    dec = find_decoder(par.codec_id)(par, device="cpu")
+    frames = dec.decode_all(fc.read_frame() for _ in range(1))
+    assert frames and all(isinstance(p, torch.Tensor) for p in
+                          frames[0].planes)
+    assert dec.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("src,opts", list(itertools.product(
+    ["h264", "y4m"], [("-pix_fmt", "rgb24"), ("-pix_fmt", "bgr24"),
+                      ("-s", "40x24"), ("-s", "96x80", "-sws_flags",
+                                        "lanczos"),
+                      ("-pix_fmt", "yuv444p"), ("-pix_fmt", "gray")])))
+def test_avconv_scale_matches_jax(src, opts, y4m, tmp_path):
+    """-pix_fmt and -s through both CLIs: identical framecrc."""
+    path = testdata.SMALL_H264 if src == "h264" else y4m
+    want = _framecrc(jax_avconv, path, str(tmp_path / "jax.crc"), *opts)
+    got = _framecrc(avconv, path, str(tmp_path / "port.crc"), *opts,
+                    device="cpu")
+    assert got == want and want.count("\n0, ") == 4
+
+
+def test_avconv_writes_yuv4mpeg_like_jax(y4m, tmp_path):
+    out = {}
+    for name, tool, kw in (("jax", jax_avconv, {}),
+                           ("port", avconv, {"device": "cpu"})):
+        out[name] = tmp_path / f"{name}.y4m"
+        assert tool.main(["-i", y4m, "-pix_fmt", "yuv444p", "-f",
+                          "yuv4mpegpipe", str(out[name])], **kw) == 0
+    assert out["port"].read_bytes() == out["jax"].read_bytes()

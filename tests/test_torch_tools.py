@@ -161,8 +161,8 @@ def test_avprobe_raises_device_faults(inputs, monkeypatch):
     (["-c:v", "mjpeg"], "step 9"),
     (["-c:v", "h264"], "step 7"),
     (["-c:v", "mpeg2video"], "step 8b"),
-    (["-s", "32x16"], "step 10"),
-    (["-pix_fmt", "yuv444p"], "step 10"),
+    (["-c:v", "aac"], "step 10b"),
+    (["-c:v", "flac"], "step 10b"),
     (["-vf", "yadif"], "step 12"),
 ])
 def test_unported_parts_name_their_step(opts, step, inputs, tmp_path,
@@ -212,10 +212,10 @@ def test_avconv_mpeg4_to_avi_matches_jax(inputs, tmp_path):
 def test_unported_decoders_name_their_step():
     with pytest.raises(AVError, match="step 8b"):
         find_decoder("mpeg4")
-    with pytest.raises(AVError, match="step 10"):
-        find_decoder("aac")
+    with pytest.raises(AVError, match="step 10b"):
+        find_decoder("mp3")
     with pytest.raises(AVError, match="step 15"):
-        find_decoder("rawvideo")
+        find_decoder("ffv1")
     dec = find_decoder("mjpeg")(device="cpu")
     assert dec.device == torch.device("cpu")
 

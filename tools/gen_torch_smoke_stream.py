@@ -27,14 +27,21 @@ package's decoder, and written with its golden into
             each packet's size and md5 and each anchor's reconstruction;
             and the md5 of `libav_tpu.tools.avconv -i ipbb.m2v
             <testdata.MPEG4_CLI_ARGS> out.m4v`
+    config5 the config-5 chain (testdata.AUDIO_STREAMS, AUDIO_RUNS,
+            VIDEO_RUNS): AC-3 5.0 and stereo and ADTS AAC-LC streams
+            encoded from audio_signal(); config5.golden.json with the md5
+            of the JAX CLI's `-ar 44100 [-ac 2] -f s16le` output on each,
+            the AAC one's s16 PCM itself (zlib), and the JAX CLI's
+            framecrc of `-pix_fmt rgb24` on the H.264 and MJPEG streams
+            and of `-s 1280x720` on the H.264 stream
 
 The machine with the GPU has no jax, so the port's smoke run reads these
 files instead of encoding. Run from the repository root (no argument
 writes all of them; the H.264 stream takes ~80 s, each MPEG-2 one ~25 s;
-framecrc and mpeg4 need the streams written first):
+framecrc, mpeg4 and config5 need the streams written first):
 
     JAX_PLATFORMS=cpu python tools/gen_torch_smoke_stream.py \
-        [h264] [mpeg2] [mjpeg] [small] [framecrc] [mpeg4]
+        [h264] [mpeg2] [mjpeg] [small] [framecrc] [mpeg4] [config5]
 """
 
 from __future__ import annotations
@@ -115,6 +122,93 @@ def write(stream_path: str, golden_path: str, datas, codec_id: str):
     print(f"{os.path.basename(stream_path)}: {len(datas)} packets, "
           f"{sum(len(d) for d in datas)} bytes, {len(gold['frames'])} "
           f"frames")
+
+
+def audio_signal(seconds: float, channels: int, seed: int,
+                 rate: int = 48000) -> np.ndarray:
+    """(channels, n) float32 test audio from a seed: per channel four
+    tones at random frequencies and phases plus one-pole low-passed
+    noise, scaled to a peak of -12 dBFS (0.25). Broadband, because SBR's
+    inverse filtering dislikes pure tones."""
+    rng = np.random.default_rng(seed)
+    n = int(round(seconds * rate))
+    t = np.arange(n) / rate
+    out = np.empty((channels, n))
+    for c in range(channels):
+        x = sum(a * np.sin(2 * np.pi * f * t + ph) for a, f, ph in zip(
+            rng.uniform(0.2, 1.0, 4), rng.uniform(60, 12000, 4),
+            rng.uniform(0, 2 * np.pi, 4)))
+        noise = rng.standard_normal(n)
+        lp = np.empty(n)
+        acc = 0.0
+        k = rng.uniform(0.02, 0.1)
+        for i in range(n):          # one-pole low-pass, pole 1 - k
+            acc += k * (noise[i] - acc)
+            lp[i] = acc
+        x = x + 4.0 * lp
+        out[c] = 0.25 * x / np.abs(x).max()
+    return out.astype(np.float32)
+
+
+def encode_audio(codec_id: str, signal: np.ndarray, opts,
+                 rate: int = 48000) -> bytes:
+    """signal (channels, n) float32 at rate through the JAX package's
+    encoder ('ac3' with bitrate_kbps, 'aac' ADTS with quality, sbr, ps):
+    the elementary stream as one file's bytes."""
+    from libav_tpu.avutil.frame import Frame
+    from libav_tpu.codecs.api import CodecParameters, MediaType, find_encoder
+    ch, n = signal.shape
+    par = CodecParameters(codec_type=MediaType.AUDIO, codec_id=codec_id,
+                          sample_rate=rate, channels=ch, sample_fmt="fltp")
+    enc = find_encoder(codec_id)(par)
+    for k, v in opts.items():
+        enc.set_opt(k, v)
+    f = Frame(nb_samples=n, sample_rate=rate, format="fltp", channels=ch)
+    f.planes = [signal[c] for c in range(ch)]
+    return b"".join(p.data for p in enc.encode_all([f]))
+
+
+def write_config5():
+    """The config-5 chain's inputs and the JAX CLI's outputs on them."""
+    import hashlib
+    import zlib
+    from libav_tpu.tools import avconv
+    gold = {"audio": {}, "video": {}}
+    for name, (codec, seconds, channels, opts, seed) in \
+            testdata.AUDIO_STREAMS.items():
+        data = encode_audio(codec, audio_signal(seconds, channels, seed),
+                            opts)
+        with open(testdata.audio_path(name), "wb") as f:
+            f.write(data)
+        print(f"{name}: {len(data)} bytes")
+    work = tempfile.mkdtemp()
+    try:
+        for name, args in testdata.AUDIO_RUNS.items():
+            out = os.path.join(work, name + ".raw")
+            if avconv.main(["-i", testdata.audio_path(name), *args,
+                            out]) != 0:
+                raise SystemExit(f"avconv failed on {name}")
+            with open(out, "rb") as f:
+                pcm = f.read()
+            gold["audio"][name] = {"args": list(args), "bytes": len(pcm),
+                                   "md5": hashlib.md5(pcm).hexdigest()}
+            if name in testdata.AUDIO_PCM_KEPT:
+                with open(testdata.pcm_golden_path(name), "wb") as f:
+                    f.write(zlib.compress(pcm, 9))
+            print(f"{name} {' '.join(args)}: {len(pcm)} bytes")
+        for run, (name, args) in testdata.VIDEO_RUNS.items():
+            out = os.path.join(work, run + ".framecrc")
+            if avconv.main(["-i", testdata.write_cli_input(name, work),
+                            *args, "-f", "framecrc", out]) != 0:
+                raise SystemExit(f"avconv failed on {run}")
+            shutil.copyfile(out, testdata.video_run_path(run))
+            gold["video"][run] = {"input": name, "args": list(args)}
+            print(f"{run}.framecrc written")
+    finally:
+        shutil.rmtree(work)
+    with open(testdata.config5_golden_path(), "w") as f:
+        json.dump(gold, f, indent=1)
+        f.write("\n")
 
 
 def write_framecrc(name: str, show_frames: bool = False):
@@ -224,8 +318,10 @@ def main(which):
             write_framecrc(name, show_frames=name == "mpeg2_1080p_ipbb")
     if "mpeg4" in which:
         write_mpeg4()
+    if "config5" in which:
+        write_config5()
 
 
 if __name__ == "__main__":
     main(sys.argv[1:] or ("h264", "mpeg2", "mjpeg", "small", "framecrc",
-                          "mpeg4"))
+                          "mpeg4", "config5"))
