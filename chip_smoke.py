@@ -96,7 +96,23 @@ Phases, in order; any failure exits nonzero and prints no result:
      streams (md5-identical to the JAX CLI's) and `-ar 44100 -f s16le` on
      the 5 s AAC-LC stream (every sample within 1 LSB of the JAX CLI's
      committed PCM; the count that differ and the IMDCT calls on the card
-     printed), each with its realtime factor.
+     printed), each with its realtime factor;
+ 13. MPEG-4 ASP decode: phase 10's 7 packets through the port's
+     MPEG4Decoder on the card, every frame's adler32 and md5 equal to the
+     JAX decoder's golden, the 3 anchors equal to the encoder's
+     reconstruction, K2 launched once per coded VOP; a warm decode (fps)
+     and one with each VOP's recon program synchronised (the upload of
+     its MB arrays and the Recon module, ms by VOP type; host share);
+     then phase 10's frames encoded three more times on the card
+     (A: qpel + mpegq + acpred, no B-VOPs; B: GMC with 3 warping points
+     and B-VOPs; C: 8192-byte video packets, data partitioning, satd),
+     each run's packets md5-identical to the JAX encoder's golden and its
+     decode frame-identical to the JAX decoder's, K2 once per VOP, with
+     upload, recon and GMC warp ms; C with one P-VOP packet cut in half,
+     concealed as the JAX decoder conceals it; the 4MV recon (half-pel
+     h263, quarter-sample mpeg4mq) on random 1920x1088 inputs, card equal
+     to CPU; and the port's avconv `-benchmark -i asp.m4v -f framecrc` on
+     A's packets, byte-identical to the JAX CLI's committed framecrc.
 The last two lines are the kernels' JSON record and the result JSON.
 """
 
@@ -161,13 +177,21 @@ def cuda_ms(fn, reps=3):
     return start.elapsed_time(stop) / reps
 
 
-def kernel_device_ms(fn, kernel, reps=20, cold=False, before=None):
+def kernel_device_ms(fn, kernel, wrapper, reps=20, cold=False,
+                     before=None):
     """Mean device milliseconds per call of fn() in the CUDA kernels whose
     name contains `kernel`, over reps calls, by torch.profiler. before()
     runs ahead of each call, untimed; with cold, FLUSH_BYTES are written
-    after it, so no input of fn is left in the L2. A profile that
-    recorded no such kernel is taken again, three times in all, and each
-    miss logs what the profile did record (the cause is not known)."""
+    after it, so no input of fn is left in the L2.
+
+    A profile can lose device events: a few, most of a window, or every
+    one, at its start or anywhere in it. So the launches it holds are
+    counted against those that wrapper counted while it ran, and the
+    time is the mean device time per launch it holds times the launches
+    per call; a shortfall is logged. Each profile waits `settle` seconds
+    before its first call (the first milliseconds lose the most); one
+    that holds no launch is taken again with four times the wait, three
+    times in all, and then the run fails."""
     attempts = 3
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -177,8 +201,11 @@ def kernel_device_ms(fn, kernel, reps=20, cold=False, before=None):
         before()
     fn()
     torch.cuda.synchronize()
+    settle = 0.05
     for attempt in range(1, attempts + 1):
+        launched = wrapper.launches
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(settle)
             for i in range(reps):
                 if before:
                     before()
@@ -186,16 +213,21 @@ def kernel_device_ms(fn, kernel, reps=20, cold=False, before=None):
                     flush.fill_(i)
                 fn()
             torch.cuda.synchronize()
-        us = [e.device_time_total for e in prof.key_averages()
-              if kernel in e.key]
-        if us:
-            return sum(us) / reps / 1e3
-        seen = [(e.key, e.count) for e in prof.key_averages()
-                if e.device_time_total > 0]
-        log(f"  the profiler recorded no {kernel} launch in {reps} calls "
-            f"(attempt {attempt} of {attempts}); device events it did "
-            f"record: {seen or 'none'}")
-    raise AssertionError(f"the profiler saw no {kernel} launch")
+        launched = wrapper.launches - launched
+        hits = [e for e in prof.key_averages() if kernel in e.key]
+        recorded = sum(e.count for e in hits)
+        if recorded != launched:
+            seen = [(e.key, e.count) for e in prof.key_averages()
+                    if e.device_time_total > 0]
+            log(f"  the profiler recorded {recorded} of {launched} {kernel} "
+                f"launches in {reps} calls after {settle} s (attempt "
+                f"{attempt} of {attempts}); device events it did record: "
+                f"{seen or 'none'}")
+        if recorded:
+            us = sum(e.device_time_total for e in hits)
+            return us / recorded * launched / reps / 1e3
+        settle *= 4
+    raise AssertionError(f"the profiler recorded no {kernel} launch")
 
 
 def event_ms(fn, reps=10, before=None):
@@ -270,8 +302,10 @@ def phase_lines(dev):
         return db.h264_edge_filter_lines(lines, qp, bs)
     ms = cuda_ms(kernel)
     plain_ms = cuda_ms(lambda: db.filter_edge_qp(lines, qp, bs))
-    warm = kernel_device_ms(kernel, "edge_filter_lines_kernel")
-    cold = kernel_device_ms(kernel, "edge_filter_lines_kernel", cold=True)
+    warm = kernel_device_ms(kernel, "edge_filter_lines_kernel",
+                            db.h264_edge_filter_lines)
+    cold = kernel_device_ms(kernel, "edge_filter_lines_kernel",
+                            db.h264_edge_filter_lines, cold=True)
     bound, nbytes = bound_ms(lines, lines, qp, bs)
     log(f"phase 2 K1 lines: 6 x {n} lines exact, {changed} lines filtered; "
         f"luma 2^20 lines kernel {ms:.4f} ms back to back, {warm:.4f} ms on "
@@ -349,22 +383,23 @@ def phase_deblock(dev):
                 p.copy_(o)
 
         kernels = {"wave": (lambda: db.deblock_frame_waves(*pads, *rest),
-                            "deblock_wave_kernel"),
+                            "deblock_wave_kernel", db.h264_deblock_wave),
                    "frame": (lambda: db.h264_deblock_frame(*pads, *rest),
-                             "deblock_frame_kernel")}
+                             "deblock_frame_kernel", db.h264_deblock_frame)}
         r = {k: {} for k in kernels}
         for k in ("wave", "frame", "frame", "wave"):       # in turns
             run = {"wave": db.deblock_frame_waves,
                    "frame": db.h264_deblock_frame}[k]
-            call, kernel = kernels[k]
+            call, kernel, wrapper = kernels[k]
             r[k].setdefault("whole", []).append(
                 event_ms(lambda: fn(*args, t8=t8, run=run)))
             r[k].setdefault("ms", []).append(event_ms(call, before=restore))
             r[k].setdefault("device_ms", []).append(
-                kernel_device_ms(call, kernel, reps=10, before=restore))
+                kernel_device_ms(call, kernel, wrapper, reps=10,
+                                 before=restore))
             r[k].setdefault("cold_device_ms", []).append(
-                kernel_device_ms(call, kernel, reps=10, before=restore,
-                                 cold=True))
+                kernel_device_ms(call, kernel, wrapper, reps=10,
+                                 before=restore, cold=True))
         grids_ms = event_ms(lambda: fn(*args, t8=t8, run=lambda *a: None))
         plain_ms = event_ms(lambda: db.deblock_frame_plain(*pads, *rest),
                             reps=1, before=restore)
@@ -535,9 +570,10 @@ def phase_idct(dev):
         out[n] = (cuda_ms(lambda: idct.idct8x8_int(x), reps=20),
                   cuda_ms(lambda: idct.idct8x8_int_plain(x)),
                   kernel_device_ms(lambda: idct.idct8x8_int(x),
-                                   "idct8x8_kernel"),
+                                   "idct8x8_kernel", idct.idct8x8_int),
                   kernel_device_ms(lambda: idct.idct8x8_int(x),
-                                   "idct8x8_kernel", cold=True),
+                                   "idct8x8_kernel", idct.idct8x8_int,
+                                   cold=True),
                   bound_ms(x, x)[0])
         log(f"phase 5 K2: {n} blocks exact; kernel {out[n][0]:.4f} ms per "
             f"call back to back ({out[n][2]:.4f} ms of it on the device "
@@ -722,18 +758,20 @@ def phase_probe(dev, card):
     linesT = lines.T.contiguous()
     runs = {
         "K2": (lambda: idct.idct8x8_int(blocks), "idct8x8_kernel",
-               (blocks, blocks)),
+               idct.idct8x8_int, (blocks, blocks)),
         "P1": (lambda: idct.idct8x8_int_cm(blocksT), "idct8x8_cm_kernel",
-               (blocksT, blocksT)),
+               idct.idct8x8_int_cm, (blocksT, blocksT)),
         "K1 lines": (lambda: db.h264_edge_filter_lines(lines, qp, bs),
-                     "edge_filter_lines_kernel", (lines, lines, qp, bs)),
+                     "edge_filter_lines_kernel", db.h264_edge_filter_lines,
+                     (lines, lines, qp, bs)),
         "P2": (lambda: db.h264_edge_filter_pm(linesT, qp, bs),
-               "edge_filter_pm_kernel", (linesT, linesT, qp, bs)),
+               "edge_filter_pm_kernel", db.h264_edge_filter_pm,
+               (linesT, linesT, qp, bs)),
     }
     out["l2"] = {}
-    for name, (fn, kernel, io_) in runs.items():
-        warm = kernel_device_ms(fn, kernel, reps=50)
-        cold = kernel_device_ms(fn, kernel, reps=50, cold=True)
+    for name, (fn, kernel, wrapper, io_) in runs.items():
+        warm = kernel_device_ms(fn, kernel, wrapper, reps=50)
+        cold = kernel_device_ms(fn, kernel, wrapper, reps=50, cold=True)
         bound, nbytes = bound_ms(*io_)
         out["l2"][name] = {"device_ms": warm, "cold_device_ms": cold,
                            "bound_ms": bound, "bytes": nbytes}
@@ -982,7 +1020,8 @@ def phase_mpeg4(dev, card):
         f"{'not measured' if k2_ms is None else f'{k2_ms:.4f} ms'} on the "
         f"device per launch at 48,960 blocks")
     return {"launches": launches, "fps": fps, "k2_device_ms": k2_ms,
-            "transcode_fps": len(frames) / (decode_s + warm_s)}
+            "transcode_fps": len(frames) / (decode_s + warm_s),
+            "frames": frames, "packets": pkts, "anchors": anchors}
 
 
 def phase_transcode(dev, card, mpeg4):
@@ -1023,6 +1062,212 @@ def phase_transcode(dev, card, mpeg4):
     return launches
 
 
+def vop_types(datas):
+    """vop_coding_type of each packet, as a letter."""
+    return ["IPBS"[d[d.index(b"\x00\x00\x01\xb6") + 4] >> 6]
+            for d in datas]
+
+
+def decode_mpeg4(dev, datas, timed=False):
+    """Decode MPEG-4 packets once with the port's MPEG4Decoder on dev: ->
+    (host (Y, U, V) per frame, seconds, K2 launches, and if timed the
+    synchronised ms of each VOP's recon program (the upload of its MB
+    arrays, then the Recon module), of the module alone and of each GMC
+    warp, in coding order)."""
+    import torch
+    from libav_tpu_torch.avutil import hwdevice
+    from libav_tpu_torch.avutil.frame import Packet
+    from libav_tpu_torch.codecs import mpegvideo
+    from libav_tpu_torch.codecs.mpeg4 import MPEG4Decoder, dec as m4dec
+    from libav_tpu_torch.ops import idct
+    spans = {"program": [], "recon": [], "warp": []}
+    saved = (hwdevice.program_factory, mpegvideo.Recon.forward,
+             m4dec.warp_refs)
+
+    def timed_call(fn, out):
+        def run(*args, **kw):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            result = fn(*args, **kw)
+            torch.cuda.synchronize(dev)
+            out.append(1e3 * (time.perf_counter() - t0))
+            return result
+        return run
+    def timed_factory(factory, device):
+        program = saved[0](factory, device)
+        return lambda *key, **flags: timed_call(program(*key, **flags),
+                                                spans["program"])
+    if timed:
+        hwdevice.program_factory = timed_factory
+        mpegvideo.Recon.forward = timed_call(saved[1], spans["recon"])
+        m4dec.warp_refs = timed_call(saved[2], spans["warp"])
+    idct.idct8x8_int.launches = 0
+    dec = MPEG4Decoder(device=dev)
+    try:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        frames = dec.decode_all(Packet(data=d, pts=i)
+                                for i, d in enumerate(datas))
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+    finally:
+        dec.close()
+        (hwdevice.program_factory, mpegvideo.Recon.forward,
+         m4dec.warp_refs) = saved
+    launches = idct.idct8x8_int.launches
+    if not all(p.device == dev for f in frames for p in f.planes):
+        raise AssertionError("mpeg4 decode: the frames are not on the card")
+    if timed and not len(spans["program"]) == len(spans["recon"]) == \
+            len(datas):
+        raise AssertionError(f"mpeg4 decode: {len(spans['program'])} "
+                             f"programs and {len(spans['recon'])} modules "
+                             f"timed for {len(datas)} VOPs")
+    host = [f.to_host().planes for f in frames]
+    return host, seconds, launches, spans
+
+
+def spans_by_vop(types, spans):
+    """Each VOP's upload + recon module ms (the upload is the recon
+    program's time less the module's), by VOP type, for the log."""
+    return "; ".join(
+        f"{t} " + ", ".join(f"{p - r:.2f} + {r:.2f}"
+                            for v, p, r in zip(types, spans["program"],
+                                               spans["recon"]) if v == t)
+        for t in sorted(set(types)))
+
+
+def phase_mpeg4_decode(dev, card, mpeg4):
+    """MPEG-4 ASP decode on the card: phase 10's packets and three more
+    encodes of its frames (qpel + mpegq + acpred; GMC with B-VOPs; video
+    packets + data partitioning + satd) against the JAX decoder's golden,
+    one K2 launch per coded VOP; a damaged packet; 4MV recon against the
+    CPU; the CLI on asp.m4v against the JAX CLI's framecrc."""
+    import torch
+    from libav_tpu_torch import testdata
+    from libav_tpu_torch.avutil.hwdevice import state_from_numpy
+    from libav_tpu_torch.codecs import mpegvideo
+    from libav_tpu_torch.ops import idct
+    from libav_tpu_torch.tools import avconv
+    from libav_tpu_torch.tools import encode_probe as ep
+    t_phase = time.perf_counter()
+    golden, framecrc = testdata.mpeg4_asp_paths()
+    gold = testdata.load_golden(golden)
+    pkts = mpeg4["packets"]
+    nvops = len(pkts)
+
+    def check(host, want, tag, launches):
+        check_golden(host, want, tag)
+        if launches != nvops:
+            raise AssertionError(f"{tag}: idct8x8_int launched {launches} "
+                                 f"times, expected {nvops}")
+
+    host, first_s, first_launches, spans = decode_mpeg4(dev, pkts, True)
+    check(host, gold["phase10_decode"], "mpeg4 decode of phase 10",
+          first_launches)
+    crop = [(1080, 1920), (540, 960), (540, 960)]
+    for k, (disp, anchor) in enumerate(zip((0, 3, 6), mpeg4["anchors"])):
+        for g, a, (h, w) in zip(host[disp], anchor, crop):
+            if not (g == a[:h, :w]).all():
+                raise AssertionError(f"mpeg4 decode: anchor {k} differs "
+                                     f"from the encoder's reconstruction")
+    types = vop_types(pkts)
+    log(f"phase 13 MPEG-4 decode of phase 10's {nvops} packets: frames "
+        f"adler32+md5 identical to the JAX decoder's golden, the 3 anchors "
+        f"equal to the encoder's reconstruction, {first_launches} K2 "
+        f"launches; first decode {first_s:.2f} s, upload + recon module ms "
+        f"per VOP (synchronised): {spans_by_vop(types, spans)}")
+    host, warm_s, launches, _ = decode_mpeg4(dev, pkts)
+    check(host, gold["phase10_decode"], "mpeg4 warm decode", launches)
+    _, timed_s, _, spans = decode_mpeg4(dev, pkts, True)
+    fps = nvops / warm_s
+    pct = {k: sum(ms) / (10 * timed_s) for k, ms in spans.items()}
+    log(f"phase 13 warm decode: {fps:.3f} fps ({1e3 * warm_s / nvops:.1f} "
+        f"ms/frame); timed pass {timed_s:.2f} s, upload + recon module by "
+        f"VOP type (synchronised ms): {spans_by_vop(types, spans)}; of the "
+        f"wall time upload {pct['program'] - pct['recon']:.1f}%, recon "
+        f"module {pct['recon']:.1f}%, host share "
+        f"{100 - pct['program']:.1f}% [{card}]")
+
+    streams = {}
+    for run, want in gold["runs"].items():
+        settings = testdata.mpeg4_asp_settings(run)
+        if settings != want["settings"]:
+            raise AssertionError(f"run {run}: settings differ from the "
+                                 f"golden's")
+        idct.idct8x8_int.launches = 0
+        streams[run], enc_s = ep.encode(dev, mpeg4["frames"], settings)
+        enc_launches = idct.idct8x8_int.launches
+        got = ep.packet_digests(streams[run])
+        if got != want["packets"]:
+            raise AssertionError(f"run {run}: packets differ from the JAX "
+                                 f"encoder's golden")
+        host, dec_s, launches, spans = decode_mpeg4(dev, streams[run],
+                                                    True)
+        check(host, want["decode"], f"mpeg4 run {run} decode", launches)
+        types = vop_types(streams[run])
+        warp = (f"; GMC warp ms "
+                f"{', '.join(f'{ms:.2f}' for ms in spans['warp'])}"
+                if spans["warp"] else "")
+        log(f"phase 13 run {run} {testdata.MPEG4_ASP_RUNS[run]}: "
+            f"{len(got)} packets ({sum(len(d) for d in streams[run])} "
+            f"bytes, {''.join(types)}) md5-identical to the JAX encoder's, "
+            f"{enc_launches} K2 launches in the encode ({enc_s:.2f} s); "
+            f"decode golden-identical, {launches} K2 launches, "
+            f"{nvops / dec_s:.3f} fps, upload + recon module ms "
+            f"{spans_by_vop(types, spans)}{warp} [{card}]")
+
+    cut = testdata.cut_packet(streams["C"], testdata.MPEG4_ASP_CUT)
+    host, _, launches, _ = decode_mpeg4(dev, cut)
+    check(host, gold["cut"]["decode"], "mpeg4 damaged-packet decode",
+          launches)
+    log(f"phase 13 run C with packet {testdata.MPEG4_ASP_CUT} cut to "
+        f"{len(cut[testdata.MPEG4_ASP_CUT])} of "
+        f"{len(streams['C'][testdata.MPEG4_ASP_CUT])} bytes: concealed, "
+        f"frames identical to the JAX decoder's golden")
+
+    # 4MV: no encoder of the JAX package emits it
+    for kind, qpel, rounding in (("h263", False, 1), ("mpeg4mq", True, 0)):
+        args, kw = testdata.recon_inputs(13, 120, 68, True, four_mv=True)
+        args[1] = args[1].clip(1, 31)
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            prog = mpegvideo.recon(120, 68, kind, False, True, rounding,
+                                   qpel=qpel, any_4mv=True, device=d)
+            planes, padded = prog(*state_from_numpy(args, d),
+                                  **state_from_numpy(kw, d))
+            outs.append([p.cpu() for p in planes + padded])
+        if not all(torch.equal(g, w) for g, w in zip(*outs)):
+            raise AssertionError(f"4MV recon ({kind}, qpel={qpel}) on the "
+                                 f"card differs from the CPU")
+    log("phase 13 4MV: 1920x1088 recon with 8x8 vectors (h263 half-pel, "
+        "mpeg4mq quarter-sample) identical on the card and the CPU")
+
+    work = tempfile.mkdtemp()
+    try:
+        src = os.path.join(work, "asp.m4v")
+        with open(src, "wb") as f:
+            f.write(b"".join(streams["A"]))
+        out = os.path.join(work, "asp.framecrc")
+        idct.idct8x8_int.launches = 0
+        _, err, seconds = run_cli(avconv, ["-benchmark", "-i", src, "-f",
+                                           "framecrc", out], dev)
+        launches = idct.idct8x8_int.launches
+        with open(out, "rb") as f, open(framecrc, "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError("avconv -i asp.m4v: framecrc differs "
+                                     "from the JAX CLI's")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if launches != nvops:
+        raise AssertionError(f"avconv -i asp.m4v: {launches} K2 launches")
+    cli_fps = float(re.search(r"fps=([0-9.]+)", err).group(1))
+    log(f"phase 13 avconv -benchmark -i asp.m4v -f framecrc: byte-identical "
+        f"to the JAX CLI's, {launches} K2 launches; CLI {cli_fps} fps "
+        f"({seconds:.2f} s wall) [{card}]")
+    log(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": first_launches, "fps": fps}
+
+
 def phase_config5_kernel(dev, card):
     """sws_yuv2rgb against its plain version on the 12 decoded 1080p
     frames (8 of the bench stream, limited range 4:2:0, and 4 of the
@@ -1059,10 +1304,11 @@ def phase_config5_kernel(dev, card):
              "plain_ms": event_ms(
                  lambda: y2r.yuv2rgb_plain(y, u, v, 1, 1, full)),
              "device_ms": kernel_device_ms(
-                 lambda: y2r.yuv2rgb(y, u, v, 1, 1, full), "yuv2rgb_kernel"),
+                 lambda: y2r.yuv2rgb(y, u, v, 1, 1, full), "yuv2rgb_kernel",
+                 y2r.yuv2rgb),
              "cold_device_ms": kernel_device_ms(
                  lambda: y2r.yuv2rgb(y, u, v, 1, 1, full), "yuv2rgb_kernel",
-                 cold=True),
+                 y2r.yuv2rgb, cold=True),
              "bound_ms": bound, "bytes": nbytes}
         r[label] = t
         log(f"phase 12 sws_yuv2rgb 1920x1080 yuv420p -> rgb24 ({label} "
@@ -1269,8 +1515,10 @@ def main():
     phase_transcode(dev, card, mpeg4)
     y2r = phase_config5_kernel(dev, card)
     config5 = phase_config5(dev, card)
+    m4dec = phase_mpeg4_decode(dev, card, mpeg4)
     k2_paths = {"mpeg2 decodes": k2_launches, "mjpeg decode": mjpeg_launches,
-                "mpeg4 encode": mpeg4["launches"]}
+                "mpeg4 encode": mpeg4["launches"],
+                "mpeg4 decode": m4dec["launches"]}
 
     max_err = max(lines["max_abs_err"], deblock["max_abs_err"])
     k2_encode = ("not measured" if mpeg4["k2_device_ms"] is None
@@ -1302,7 +1550,8 @@ def main():
                      "launches); launches: the two MPEG-2 streams' decodes; "
                      "launches_by_path: each path's first run (those "
                      "decodes, the MJPEG decode, the MPEG-4 encode's "
-                     "anchors); in the MPEG-4 encode "
+                     "anchors, the MPEG-4 decode of its 7 VOPs); in the "
+                     "MPEG-4 encode "
                      f"{k2_encode} on the device per launch; "
                      f"at 24,480 (a field): {k2[24480][0]} ms, device "
                      f"{k2[24480][2]} ms, plain {k2[24480][1]} ms",

@@ -70,7 +70,7 @@ _ENCODERS: Dict[str, Type["Encoder"]] = {}
 
 # codec id -> the ROADMAP.md module-queue step that ports its decoder
 NOT_PORTED = {
-    **dict.fromkeys(("mpeg4", "h263", "flv1", "msmpeg4", "msmpeg4v2",
+    **dict.fromkeys(("h263", "flv1", "msmpeg4", "msmpeg4v2",
                      "msmpeg4v3", "msmpeg4v4", "wmv1"), "8b"),
     **dict.fromkeys(("mp1", "mp2", "mp2float", "mp3", "mp3float", "flac"),
                     "10b"),

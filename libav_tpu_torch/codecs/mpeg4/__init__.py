@@ -1,7 +1,9 @@
-"""MPEG-4 part 2 video encoding with PyTorch device programs (counterpart
-of `libav_tpu/codecs/mpeg4`). The host half (VOL/VOP headers, MB-layer
-VLC coding, DC/AC/MV prediction) is a copy of the JAX package's; the
-device half (motion search, FDCT, H.263 quantisation, reconstruction
-through kernel K2) is the port's. The decoder is not ported yet."""
+"""MPEG-4 part 2 video with PyTorch device programs (counterpart of
+`libav_tpu/codecs/mpeg4`). The host halves (VOL/VOP headers, MB-layer VLC
+coding and decoding, DC/AC/MV prediction, video packets, partitions, GMC
+sprite trajectories) are copies of the JAX package's; the device halves
+(motion search, FDCT, quantisation, GMC warp, reconstruction through
+kernel K2) are the port's."""
 
 from libav_tpu_torch.codecs.mpeg4.enc import MPEG4Encoder  # noqa: F401
+from libav_tpu_torch.codecs.mpeg4.dec import MPEG4Decoder  # noqa: F401

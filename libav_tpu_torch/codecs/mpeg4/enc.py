@@ -5,28 +5,28 @@ with mpegvideo_enc.c).
 
 Device, on the encoder's torch device (`MPEG4Encoder(params,
 device="cuda")` by default; "cpu" runs the same programs on the CPU):
-motion search, prediction, FDCT and H.263 quantisation through the
-port's `codecs/mpegvideo.py` programs `encode` (I/P VOPs) and
-`encode_b_h263` (B-VOPs), and the anchors' reconstruction through
-`recon` ('h263'), whose IDCT is kernel K2: one launch per I/P VOP. The
-input planes are padded to whole macroblocks on the device, and the
-reference planes stay there from one VOP to the next. The levels (cast
-to int16 on the device), vectors and intra flags come to the host once
-per VOP for the packer.
+motion search, prediction, FDCT and the H.263 or MPEG matrix (`mpegq`)
+quantiser, with the SAD or SATD (`mbcmp`) intra decision, through the
+port's `codecs/mpegvideo.py` programs `encode` (I/P/S VOPs) and
+`encode_b_h263` (B-VOPs); the GMC warp of the references (ops/gmc.py)
+and the GMC macroblocks' residual (`gmc_residual`) for S-VOPs; and the
+anchors' reconstruction through `recon` (quarter-sample with `qpel`),
+whose IDCT is kernel K2: one launch per I/P/S VOP. The input planes are
+padded to whole macroblocks on the device, and the reference planes stay
+there from one VOP to the next. The levels (cast to int16 on the
+device), vectors and intra flags come to the host once per VOP for the
+packer.
 
 Host, the JAX package's code, copied: VOS/VOL/VOP headers, MCBPC/CBPY,
 gradient DC prediction, median MV prediction, intra AC prediction, 3D
 run-level VLC with ESC3 fallback, B-VOP modes with direct and
 colocated-skip inheritance, video packets (`ps`), data partitioning,
-trellis quantisation (codecs/trellis.py) and adaptive quantisation
-(codecs/ratecontrol.py).
-
-Options whose device code is not ported (quarter-sample `qpel`, `gmc`,
-the MPEG quantiser `mpegq` and `mbcmp=satd`) raise NotImplementedError
-naming ROADMAP.md module queue step 8b when the encoder opens, and the
-host code only they reach is left out of the copy: S(GMC)-VOPs and their
-sprite trajectories, the advanced-simple VOL fields (sprite,
-quarter_sample), the quant_type 1 matrices and f_code 2.
+trellis quantisation (codecs/trellis.py), adaptive quantisation
+(codecs/ratecontrol.py), the advanced-simple VOL fields, S(GMC)-VOPs
+with their sprite trajectories and mcsel macroblocks, and quant_type 1
+with the default matrices. As in the JAX encoder, qpel takes no
+B-frames, gmc neither qpel nor mpegq (EINVAL at open), and quarter-sample
+vectors are the half-pel search's doubled.
 """
 
 from __future__ import annotations
@@ -44,9 +44,11 @@ from libav_tpu_torch.avutil.rational import Rational
 from libav_tpu_torch.bitstream import PutBits
 from libav_tpu_torch.codecs.api import Encoder, MediaType, register_codec
 from libav_tpu_torch.codecs.mpeg4 import tables as T
-from libav_tpu_torch.codecs.mpegvideo import (_unported, encode,
-                                              encode_b_h263, recon,
+from libav_tpu_torch.codecs.mpegvideo import (encode, encode_b_h263,
+                                              gmc_residual, recon,
                                               zero_pad_refs)
+from libav_tpu_torch.ops.gmc import (GMCParams, compute_warp_params,
+                                     get_amv, warp_refs)
 from libav_tpu_torch.ops.mc import EDGE
 from libav_tpu_torch.ops.quant import (alternate_horizontal_scan,
                                        alternate_scan, mpeg4_dc_scaler,
@@ -60,7 +62,7 @@ VO_STARTCODE = b"\x00\x00\x01\x00"
 VOL_STARTCODE = b"\x00\x00\x01\x20"
 VOP_STARTCODE = b"\x00\x00\x01\xB6"
 
-PICT_I, PICT_P, PICT_B = 0, 1, 2
+PICT_I, PICT_P, PICT_B, PICT_S = 0, 1, 2, 3
 
 
 def encode_mv_component(pb: PutBits, delta: int, fcode: int = 1):
@@ -189,8 +191,6 @@ class MPEG4Encoder(Encoder):
     CAPABILITIES = ("delay",)
     DEVICE_PART = True
 
-    F_CODE = 1
-
     def __init__(self, params=None, options=None, *, device="cuda"):
         """MPEG4Encoder(params, options, device=...): the device programs
         run on `device`; frames may hold numpy arrays or tensors."""
@@ -202,13 +202,13 @@ class MPEG4Encoder(Encoder):
             raise AVError(EINVAL, "mpeg4: width/height required")
         self.mb_w = (self.width + 15) >> 4
         self.mb_h = (self.height + 15) >> 4
-        for name, what in (("qpel", "quarter-sample MC (qpel)"),
-                           ("gmc", "global motion compensation (gmc)"),
-                           ("mpegq", "the MPEG quantiser (mpegq)")):
-            if getattr(self, name):
-                raise _unported(f"mpeg4: {what}")
-        if self.mbcmp != "sad":
-            raise _unported(f"mpeg4: mbcmp={self.mbcmp!r}")
+        if self.qpel and self.b_frames:
+            raise AVError(EINVAL, "mpeg4: qpel B-VOPs not supported")
+        if self.gmc and (self.qpel or self.mpegq):
+            raise AVError(EINVAL, "mpeg4: gmc with qpel/mpegq not "
+                          "supported by this encoder")
+        self._fcode = 2 if self.qpel else 1
+        self._gmc_n = 0
         self._frame_idx = 0
         self._refs = None
         self._refs_prev = None
@@ -221,8 +221,14 @@ class MPEG4Encoder(Encoder):
         self._fr = fr if fr else Rational(25, 1)
         self._time_res = max(self._fr.num, 1)
         self._time_inc_bits = max(1, (self._time_res - 1).bit_length())
-        # the h263 quantiser reads no matrix
-        self._qi = self._qp = None
+        if self.mpegq:
+            zz = np.asarray(zigzag_scan())
+            self._qi, self._qp = (
+                torch.as_tensor(np.array(m, np.int32)[zz]).to(self.device)
+                for m in (T.DEFAULT_INTRA_MATRIX, T.DEFAULT_INTER_MATRIX))
+        else:
+            # the h263 quantiser reads no matrix
+            self._qi = self._qp = None
 
     # ------------------------------------------------------------------ #
 
@@ -254,9 +260,10 @@ class MPEG4Encoder(Encoder):
 
     @property
     def _adaptive_quant(self) -> bool:
-        return bool(self.lumi_masking or self.dark_masking or
-                    self.tcplx_masking or self.scplx_masking or
-                    self.p_masking or self.border_masking)
+        return bool((self.lumi_masking or self.dark_masking or
+                     self.tcplx_masking or self.scplx_masking or
+                     self.p_masking or self.border_masking)
+                    and not self.gmc)
 
     def _frame_qscale(self, y: np.ndarray, is_i: bool) -> np.ndarray:
         """Per-MB qscale field.  With any masking option set, runs the
@@ -294,8 +301,10 @@ class MPEG4Encoder(Encoder):
         y, u, v = self._padded_input(frame)
         qscale = self._frame_qscale(y, is_i)
         qs = torch.as_tensor(qscale).to(self.device)
-        want_tr = bool(self.trellis and not is_i)
-        enc = encode(self.mb_w, self.mb_h, not is_i, want_coeffs=want_tr,
+        kind = "mpeg4mq" if self.mpegq else "h263"
+        want_tr = bool(self.trellis and not is_i and not self.mpegq)
+        enc = encode(self.mb_w, self.mb_h, not is_i, kind,
+                     want_coeffs=want_tr, mbcmp=self.mbcmp,
                      device=self.device)
         refs = self._refs if not is_i else \
             zero_pad_refs(self.mb_w, self.mb_h, device=self.device)
@@ -313,13 +322,57 @@ class MPEG4Encoder(Encoder):
                 lam_scale=self.trellis_lambda / 100.0)
             levels = flat.reshape(nmb, 6, 64)
             lv = torch.as_tensor(levels).to(self.device)
+        if self.qpel and not is_i:
+            # half-pel ME doubled to quarter-pel units; the closed loop
+            # reconstructs through the SAME 8-tap qpel MC the decoder
+            # uses, so prediction drift cannot accumulate
+            mvs = mvs * 2
+            mv = mv * 2
 
+        gmc_mask = np.zeros(nmb, dtype=bool)
+        traj = None
         r1 = zero_pad_refs(self.mb_w, self.mb_h, device=self.device)
-        rec = recon(self.mb_w, self.mb_h, "h263", False, not is_i,
-                    device=self.device)
+        if self.gmc and not is_i:
+            n = self._gmc_n
+            self._gmc_n += 1
+            traj = [((2 * n) % 17 - 8, (3 * n) % 13 - 6),
+                    (1 + n % 2, n % 3 - 1), (n % 3 - 1, 1)][:self.gmc]
+            off, dlt, shf, rp = compute_warp_params(
+                traj, self.gmc, self.gmc_acc, self.width, self.height)
+            params = GMCParams(off, dlt, shf, rp, self.gmc_acc, 0)
+            r1 = warp_refs(refs, params, self.mb_w, self.mb_h)
+            # mcsel on a checkerboard of non-intra MBs
+            gx = np.arange(nmb) % self.mb_w
+            gy = np.arange(nmb) // self.mb_w
+            if self.gmc_sel == 1:
+                gmc_mask = (~intra)
+            else:
+                gmc_mask = (~intra) & (((gx + gy) & 1) == 0)
+            mvs = mvs.copy()
+            glevels, = self._download(gmc_residual(
+                self.mb_w, self.mb_h, device=self.device)(
+                y, u, v, r1[0], r1[1], r1[2], qs).to(torch.int16))
+            levels = levels.copy()
+            levels[gmc_mask] = glevels[gmc_mask]
+            # amv into the MV array (neighbors predict from it and the
+            # decoder stores it for B direct)
+            amv_c = {}
+            for idx in np.nonzero(gmc_mask)[0]:
+                key = (0, 0) if rp == 1 else (int(gx[idx]), int(gy[idx]))
+                if key not in amv_c:
+                    amv_c[key] = (
+                        get_amv(params, 0, self._fcode, key[0], key[1], 0),
+                        get_amv(params, 0, self._fcode, key[0], key[1], 1))
+                mvs[idx] = amv_c[key]
+            lv = torch.as_tensor(levels).to(self.device)
+            mv = torch.as_tensor(mvs).to(self.device)
+
+        rec = recon(self.mb_w, self.mb_h, kind, False, not is_i,
+                    qpel=bool(self.qpel and not is_i), device=self.device)
         no = torch.zeros(nmb, dtype=torch.bool, device=self.device)
-        use_fwd = no if is_i else ~intra_d
-        _, padded = rec(lv, qs, intra_d, use_fwd, no, mv,
+        gmc_d = torch.as_tensor(gmc_mask).to(self.device)
+        use_fwd = no if is_i else ~intra_d & ~gmc_d
+        _, padded = rec(lv, qs, intra_d, use_fwd, gmc_d, mv,
                         torch.zeros_like(mv), self._qi, self._qp,
                         *refs, *r1)
         self._refs_prev = self._refs
@@ -333,7 +386,7 @@ class MPEG4Encoder(Encoder):
         else:
             cbp_any = np.any(
                 levels.reshape(nmb, 6, 64) != 0, axis=(1, 2))
-            self._col_skip = (~intra) & ~cbp_any & \
+            self._col_skip = (~intra) & ~cbp_any & ~gmc_mask & \
                 (mvs[:, 0] == 0) & (mvs[:, 1] == 0)
             self._col_mv = np.where(intra[:, None], 0, mvs)
         self._anchor_disps = (getattr(self, "_cur_anchor_disp", disp),
@@ -341,7 +394,9 @@ class MPEG4Encoder(Encoder):
         self._cur_anchor_disp = disp
 
         data = self._pack(levels, mvs, intra, qscale,
-                          PICT_I if is_i else PICT_P, disp)
+                          PICT_I if is_i else
+                          (PICT_S if self.gmc else PICT_P), disp,
+                          traj=traj, gmc_mask=gmc_mask)
         pkt = Packet(data=data, pts=frame.pts, dts=frame.pts, duration=1,
                      flags=PKT_FLAG_KEY if is_i else 0,
                      time_base=frame.time_base)
@@ -352,7 +407,8 @@ class MPEG4Encoder(Encoder):
         qscale = torch.full((nmb,), self.qscale, dtype=torch.int32,
                             device=self.device)
         y, u, v = self._padded_input(frame)
-        fn = encode_b_h263(self.mb_w, self.mb_h, device=self.device)
+        kind = "mpeg4mq" if self.mpegq else "h263"
+        fn = encode_b_h263(self.mb_w, self.mb_h, kind, device=self.device)
         zero = zero_pad_refs(self.mb_w, self.mb_h, device=self.device)
         r0 = self._refs_prev or zero
         r1 = self._refs or zero
@@ -462,8 +518,15 @@ class MPEG4Encoder(Encoder):
         out += VO_STARTCODE     # video_object 0
         pb = PutBits()
         pb.put_bits(1, 0)       # random_accessible_vol
-        pb.put_bits(8, 0x01)    # video_object_type_indication: simple
-        pb.put_bits(1, 0)       # is_object_layer_identifier
+        # video_object_type_indication: simple (1) / adv. simple (17)
+        asp = bool(self.qpel or self.gmc)
+        pb.put_bits(8, 0x11 if asp else 0x01)
+        if asp:
+            pb.put_bits(1, 1)   # is_object_layer_identifier
+            pb.put_bits(4, 5)   # vol_ver_id
+            pb.put_bits(3, 1)   # vol_priority
+        else:
+            pb.put_bits(1, 0)   # is_object_layer_identifier
         pb.put_bits(4, 1)       # aspect_ratio_info: 1:1
         pb.put_bits(1, 0)       # vol_control_parameters
         pb.put_bits(2, 0)       # shape: rectangular
@@ -478,21 +541,51 @@ class MPEG4Encoder(Encoder):
         pb.put_bits(1, 1)       # marker
         pb.put_bits(1, 0)       # interlaced
         pb.put_bits(1, 1)       # obmc_disable
-        pb.put_bits(1, 0)       # sprite_enable (1 bit at ver_id 1)
+        # sprite_enable: 1 bit at ver_id 1, 2 bits otherwise
+        if asp:
+            pb.put_bits(2, 2 if self.gmc else 0)
+            if self.gmc:        # reference :1790-1813
+                pb.put_bits(6, self.gmc)            # warping points
+                pb.put_bits(2, self.gmc_acc)
+                pb.put_bits(1, 0)                   # brightness_change
+        else:
+            pb.put_bits(1, 0)
         pb.put_bits(1, 0)       # not_8_bit
-        pb.put_bits(1, 0)       # quant_type: h263
+        pb.put_bits(1, 1 if self.mpegq else 0)   # quant_type
+        if self.mpegq:
+            pb.put_bits(1, 0)   # load_intra_quant_mat: defaults
+            pb.put_bits(1, 0)   # load_nonintra_quant_mat: defaults
+        if asp:
+            pb.put_bits(1, 1 if self.qpel else 0)   # quarter_sample
         pb.put_bits(1, 1)       # complexity_estimation_disable
         pb.put_bits(1, 0 if self.ps else 1)   # resync_marker_disable
         pb.put_bits(1, 1 if self.data_partitioning else 0)
         if self.data_partitioning:
             pb.put_bits(1, 0)   # reversible_vlc
+        if asp:                 # ver_id != 1 extras
+            pb.put_bits(1, 0)   # newpred_enable
+            pb.put_bits(1, 0)   # reduced_res_vop_enable
         pb.put_bits(1, 0)       # scalability
         self._stuff(pb)
         out += VOL_STARTCODE + pb.flush()
         return bytes(out)
 
+    @staticmethod
+    def _write_traj(pb: PutBits, traj):
+        """Sprite trajectory dmv writer (inverse of get_xbits + Table
+        B-30 length codes)."""
+        for (x, y) in traj:
+            for v in (x, y):
+                ln = abs(v).bit_length()
+                code, bits = T.SPRITE_TRAJ[ln]
+                pb.put_bits(bits, code)
+                if ln:
+                    raw = v if v > 0 else v + (1 << ln) - 1
+                    pb.put_bits(ln, raw)
+                pb.put_bits(1, 1)   # marker
+
     def _vop_header(self, pb: PutBits, pict_type: int, disp: int,
-                    q0=None):
+                    traj=None, q0=None):
         """VOP header with the decoder's exact time bookkeeping
         (ISO 14496-2 §6.2.5: modulo_time_base counts whole seconds —
         non-B relative to time_base, B relative to last_time_base)."""
@@ -512,29 +605,34 @@ class MPEG4Encoder(Encoder):
         pb.put_bits(self._time_inc_bits, tinc)
         pb.put_bits(1, 1)       # marker
         pb.put_bits(1, 1)       # vop_coded
-        if pict_type == PICT_P:
+        if pict_type in (PICT_P, PICT_S):
             pb.put_bits(1, 0)   # vop_rounding_type
         pb.put_bits(3, 0)       # intra_dc_vlc_thr: always intra DC VLC
+        if pict_type == PICT_S:
+            self._write_traj(pb, traj)
         pb.put_bits(5, self.qscale if q0 is None else int(q0))
-        if pict_type in (PICT_P, PICT_B):
-            pb.put_bits(3, self.F_CODE)
+        if pict_type in (PICT_P, PICT_B, PICT_S):
+            pb.put_bits(3, self._fcode)
         if pict_type == PICT_B:
             pb.put_bits(3, 1)   # vop_bcode
 
     # ------------------------------------------------------------------ #
 
     def _pack(self, levels, mvs, intra, qscale, pict_type,
-              disp=0) -> bytes:
+              disp=0, traj=None, gmc_mask=None) -> bytes:
         out = bytearray()
         if pict_type == PICT_I:
             out += self._vol_headers()
         pb = PutBits()
-        self._vop_header(pb, pict_type, disp, q0=int(qscale[0]))
-        self._mb_layer(pb, levels, mvs, intra, qscale, pict_type)
+        self._vop_header(pb, pict_type, disp, traj=traj,
+                         q0=int(qscale[0]))
+        self._mb_layer(pb, levels, mvs, intra, qscale, pict_type,
+                       gmc_mask=gmc_mask)
         self._stuff(pb)
         return bytes(out) + VOP_STARTCODE + pb.flush()
 
-    def _mb_layer(self, pb, levels, mvs, intra, qscale, pict_type):
+    def _mb_layer(self, pb, levels, mvs, intra, qscale, pict_type,
+                  gmc_mask=None):
         """MB layer with optional video packets (`ps`, reference:
         mpegvideo_enc.c:2762 is_gob_start + write_slice_end +
         ff_mpeg4_encode_video_packet_header) and data partitioning
@@ -586,7 +684,7 @@ class MPEG4Encoder(Encoder):
                     merge_partitions()
                     self._stuff(pb)
                     last_gob = pb.bits_written() >> 3
-                    pb.put_bits(_vpp_prefix_len(pict_type, self.F_CODE,
+                    pb.put_bits(_vpp_prefix_len(pict_type, self._fcode,
                                                 1), 0)
                     pb.put_bits(1, 1)
                     pb.put_bits(max(1, (nmb - 1).bit_length()), idx)
@@ -614,12 +712,18 @@ class MPEG4Encoder(Encoder):
                 cbpy = cbp >> 2
 
                 dq = q - cur_q      # +-2 by the _frame_qscale walk
-                if pict_type == PICT_P:
-                    # a q transition needs a coded MB to carry the
-                    # dquant, so those MBs are never skipped
-                    not_coded = (not is_intra and cbp == 0
-                                 and mv[0] == 0 and mv[1] == 0
-                                 and dq == 0)
+                if pict_type in (PICT_P, PICT_S):
+                    is_gmc = gmc_mask is not None and bool(gmc_mask[idx])
+                    if pict_type == PICT_S:
+                        # not_coded in an S-VOP decodes as a GMC skip,
+                        # so only GMC MBs without residual may use it
+                        not_coded = is_gmc and cbp == 0
+                    else:
+                        # a q transition needs a coded MB to carry the
+                        # dquant, so those MBs are never skipped
+                        not_coded = (not is_intra and cbp == 0
+                                     and mv[0] == 0 and mv[1] == 0
+                                     and dq == 0)
                     if not_coded:
                         pb.put_bits(1, 1)   # not_coded = skip
                         for k in range(4):
@@ -650,14 +754,19 @@ class MPEG4Encoder(Encoder):
                     for k in range(4):
                         pred.grid_put(mb_x, mb_y, k, 0, 0)
                 else:
+                    if pict_type == PICT_S:
+                        pb.put_bits(1, 1 if is_gmc else 0)   # mcsel
                     code, bits = T.CBPY[15 - cbpy]
                     pb2.put_bits(bits, code)
                     if dq:
                         pb2.put_bits(2, DQUANT_CODE[dq])
-                    # motion vector, median predicted
-                    px, py = pred.grid_pred(mb_x, mb_y, 0)
-                    encode_mv_component(pb, int(mv[0]) - px, self.F_CODE)
-                    encode_mv_component(pb, int(mv[1]) - py, self.F_CODE)
+                    if not (pict_type == PICT_S and is_gmc):
+                        # motion vector, median predicted
+                        px, py = pred.grid_pred(mb_x, mb_y, 0)
+                        encode_mv_component(pb, int(mv[0]) - px,
+                                            self._fcode)
+                        encode_mv_component(pb, int(mv[1]) - py,
+                                            self._fcode)
                     for k in range(4):
                         pred.grid_put(mb_x, mb_y, k, int(mv[0]),
                                       int(mv[1]))

@@ -1,27 +1,30 @@
-"""mpegvideo device programs: MPEG-1/2 and H.263-quantised
-reconstruction, and the MPEG-4 encoder's picture programs (counterpart
-of `libav_tpu/codecs/mpegvideo.py` recon_jit, recon_field_jit,
+"""mpegvideo device programs: MPEG-1/2, H.263 and MPEG-4 reconstruction,
+and the MPEG-4 encoder's picture programs (counterpart of
+`libav_tpu/codecs/mpegvideo.py` recon_jit, recon_field_jit,
 fields_of_frame_jit, weave_fields_jit, zero_pad_refs, encode_jit and
-encode_b_h263_jit; reference: mpegvideo.c ff_mpv_decode_mb,
+encode_b_h263_jit, and of `libav_tpu/codecs/mpeg4/enc.py`
+_gmc_resid_jit; reference: mpegvideo.c ff_mpv_decode_mb,
 mpegvideo_motion.c and the device half of mpegvideo_enc.c).
 
 One program per coded picture, the JAX package's stages:
-  1. residual: dequant (MPEG-1, MPEG-2 or H.263 with the MPEG-4 DC
-     scaler, intra/inter per MB), the inverse scan, MPEG-2 mismatch
-     control, and the 8x8 IDCT of every block of the picture in one
-     launch of kernel K2 (ops/idct.py);
-  2. prediction: half-pel MC of luma and chroma from one or two
-     references, combined per MB (forward, backward or averaged); frame
-     pictures add field MC, field DCT and dual prime, field pictures
-     pick a reference field per 16x8 half;
+  1. residual: dequant (MPEG-1, MPEG-2, H.263 with the MPEG-4 DC scaler,
+     or the MPEG-4 matrix quantiser with its parity fix; intra/inter per
+     MB), the inverse scan, MPEG-2 mismatch control, and the 8x8 IDCT of
+     every block of the picture in one launch of kernel K2 (ops/idct.py);
+  2. prediction: half-pel or MPEG-4 quarter-sample MC of luma and chroma
+     from one or two references, 8x8 vectors where a macroblock has four
+     (4MV, B direct), combined per MB (forward, backward or averaged);
+     frame pictures add field MC, field DCT and dual prime, field
+     pictures pick a reference field per 16x8 half;
   3. assembly: prediction + residual, clamped, laid out as planes, and
      the edge-padded planes the next picture predicts from.
 
-The encoder's programs (`Encode`, `EncodeB`) run motion search
-(ops/me.py), prediction, the residual, the forward DCT (ops/fdct.py) and
-the H.263 quantiser for every macroblock at once; the encoder then
-reconstructs its anchors through `Recon` ('h263'), the decoder's
-program, so the prediction loop is closed through K2.
+The encoder's programs (`Encode`, `EncodeB`, `GMCResidual`) run motion
+search (ops/me.py), prediction, the residual, the forward DCT
+(ops/fdct.py) and the H.263 or MPEG matrix quantiser for every macroblock
+at once, with the SAD or the Hadamard (SATD, ops/mecmp.py) intra/inter
+decision; the encoder then reconstructs its anchors through `Recon`, the
+decoder's program, so the prediction loop is closed through K2.
 
 Each program is an nn.Module whose per-geometry constants (inverse scan,
 macroblock origins) are registered buffers, built by an lru_cached
@@ -30,11 +33,9 @@ program picks between two reference fields with `where` over two MCs,
 this one gathers from the stacked pair with a per-block index: the same
 pixels, half the work.
 
-Not ported (ROADMAP.md step 8b): the other quantisers of the
-H.263/MPEG-4 family (h263sh, wmv1, mpeg4, mpeg4mq), quarter-sample MC
-and 4MV, which `Recon` refuses with NotImplementedError; the encoder
-programs are those of the 'h263' kind with the SAD decision only, so the
-MPEG-1/2 and MPEG-quantiser encoders and the SATD decision have none.
+Not ported (ROADMAP.md step 8b): the H.263 short-header and WMV1
+quantisers ('h263sh', 'wmv1'), which `Recon` refuses with
+NotImplementedError, and the MPEG-1/2 encoders' programs.
 """
 
 from __future__ import annotations
@@ -49,10 +50,18 @@ from libav_tpu_torch.ops.quant import alternate_scan, zigzag_scan
 from libav_tpu_torch.ops import quant as quant_ops
 from libav_tpu_torch.ops.fdct import fdct8x8_int
 from libav_tpu_torch.ops.idct import idct8x8_int
-from libav_tpu_torch.ops.mc import (EDGE, avg_pred, chroma_mv_div2,
-                                    chroma_mv_h263, mc_hpel, pad_plane,
+from libav_tpu_torch.ops.mc import (EDGE, avg_pred, chroma_mv_4mv_hpel,
+                                    chroma_mv_4mv_qpel, chroma_mv_div2,
+                                    chroma_mv_h263, chroma_mv_qpel,
+                                    mc_hpel, mc_hpel_tiled8, mc_qpel_mpeg4,
+                                    mc_qpel_mpeg4_tiled8, pad_plane,
                                     pad_rows)
 from libav_tpu_torch.ops.me import FullPelSearch, HpelRefine
+from libav_tpu_torch.ops.mecmp import satd16_of
+
+# the H.263/MPEG-4 family's quantiser kinds; they derive chroma vectors
+# with the rounding rule (motion_est.h:96), not MPEG-1/2 truncation
+H263_KINDS = ("h263", "h263sh", "wmv1", "mpeg4", "mpeg4mq")
 
 
 def _unported(what: str):
@@ -88,9 +97,7 @@ class _Picture(nn.Module):
         super().__init__()
         self.mb_w, self.mb_h, self.nmb = mb_w, mb_h, mb_w * mb_h
         self.quant_kind = quant_kind
-        # H.263/MPEG-4 derive chroma vectors with the rounding rule, not
-        # MPEG-1/2 truncation
-        self.chroma_mv = chroma_mv_h263 if quant_kind == "h263" \
+        self.chroma_mv = chroma_mv_h263 if quant_kind in H263_KINDS \
             else chroma_mv_div2
         self.register_buffer("pos", quant_ops.raster_positions(
             alternate_scan() if alt_scan else zigzag_scan()))
@@ -111,7 +118,12 @@ class _Picture(nn.Module):
         if self.quant_kind == "mpeg1":
             deq_i = quant_ops.mpeg1_dequant_intra(c, qs, intra_q)
             deq_p = quant_ops.mpeg1_dequant_inter(c, qs, inter_q)
-        elif self.quant_kind == "h263":
+        elif self.quant_kind == "mpeg4mq":
+            # MPEG-4 quant_type 1: matrix quant, bitexact mismatch
+            dcs = quant_ops.dc_scaler(qs, self.luma_blk)
+            deq_i = quant_ops.mpeg4_mq_dequant_intra(c, qs, intra_q, dcs)
+            deq_p = quant_ops.mpeg4_mq_dequant_inter(c, qs, inter_q)
+        elif self.quant_kind in ("h263", "mpeg4"):
             dcs = quant_ops.dc_scaler(qs, self.luma_blk)
             deq_i = quant_ops.h263_dequant(c, qs, dcs, True)
             deq_p = quant_ops.h263_dequant(c, qs, dcs, False)
@@ -165,21 +177,50 @@ class Recon(_Picture):
     """Frame-picture recon; the JAX recon_jit program. interlaced=True
     adds the frame-picture interlace tools: 16x8 field MC (two field
     vectors and field selects per direction), field DCT, and with
-    dual=True dual prime."""
+    dual=True dual prime. qpel=True takes quarter-sample vectors (MPEG-4
+    8-tap luma MC, chroma by qpel_motion's rule); any_4mv=True adds the
+    per-MB use4 flag and the 8x8 vectors mv4f/mv4b (B, 4, 2), whose luma
+    is four 8x8 blocks and whose chroma vector comes from their sum."""
 
     def __init__(self, mb_w: int, mb_h: int, quant_kind: str,
                  alt_scan: bool, inter_frame: bool, rounding: int = 0,
                  interlaced: bool = False, qpel: bool = False,
                  dual: bool = False, any_4mv: bool = False):
-        if quant_kind not in ("mpeg1", "mpeg2", "h263"):
+        if quant_kind not in ("mpeg1", "mpeg2", "h263", "mpeg4", "mpeg4mq"):
             raise _unported(f"the {quant_kind!r} quantiser")
-        if qpel:
-            raise _unported("quarter-sample MC (qpel)")
-        if any_4mv:
-            raise _unported("4MV prediction")
         super().__init__(mb_w, mb_h, alt_scan, quant_kind)
         self.inter_frame, self.rounding = inter_frame, rounding
         self.interlaced, self.dual = interlaced, dual
+        self.qpel, self.any_4mv = qpel, any_4mv
+
+    def pred_dir(self, refs, mv, mv4, use4, rnd):
+        """One direction's (luma, U, V) prediction of every MB: half- or
+        quarter-sample, from four 8x8 vectors where use4."""
+        if self.qpel:
+            y = mc_qpel_mpeg4(refs[0], self.x16, self.y16, mv[:, 0],
+                              mv[:, 1], no_rnd=self.rounding)
+            cmv = chroma_mv_qpel(mv)
+        else:
+            y = mc_hpel(refs[0], self.x16, self.y16, mv[:, 0], mv[:, 1], 16,
+                        rnd)
+            cmv = self.chroma_mv(mv)
+        if self.any_4mv:
+            # MV_TYPE_8X8: the 8-wide qpel reflection changes the samples
+            # against one 16x16 block
+            if self.qpel:
+                y4 = mc_qpel_mpeg4_tiled8(refs[0], self.x16, self.y16, mv4,
+                                          no_rnd=self.rounding)
+                c4 = chroma_mv_4mv_qpel(mv4)
+            else:
+                y4 = mc_hpel_tiled8(refs[0], self.x16, self.y16, mv4, rnd)
+                c4 = chroma_mv_4mv_hpel(mv4)
+            y = torch.where(use4[:, None, None], y4, y)
+            cmv = torch.where(use4[:, None], c4, cmv)
+        return (y,
+                mc_hpel(refs[1], self.x8, self.y8, cmv[:, 0], cmv[:, 1], 8,
+                        rnd),
+                mc_hpel(refs[2], self.x8, self.y8, cmv[:, 0], cmv[:, 1], 8,
+                        rnd))
 
     def field_pred(self, ry, ru, rv, mv2, sel, rnd):
         """16x8-per-field MC from the padded frame references: mv2
@@ -210,12 +251,13 @@ class Recon(_Picture):
     def forward(self, coeffs, qscale, intra, use_fwd, use_bwd, mv_fwd,
                 mv_bwd, intra_q, inter_q, r0y, r0u, r0v, r1y, r1u, r1v,
                 field_mc=None, dct_field=None, mvf2=None, mvb2=None,
-                sel_f=None, sel_b=None, dp=None, mv_dp2=None, sel_dp=None):
+                sel_f=None, sel_b=None, dp=None, mv_dp2=None, sel_dp=None,
+                use4=None, mv4f=None, mv4b=None):
         resid = self.residual(coeffs, qscale, intra, intra_q, inter_q)
         if self.inter_frame:
             rnd = 1 - self.rounding
-            fwd = self.mc6((r0y, r0u, r0v), mv_fwd, rnd)
-            bwd = self.mc6((r1y, r1u, r1v), mv_bwd, rnd)
+            fwd = self.pred_dir((r0y, r0u, r0v), mv_fwd, mv4f, use4, rnd)
+            bwd = self.pred_dir((r1y, r1u, r1v), mv_bwd, mv4b, use4, rnd)
             if self.interlaced:
                 fm = field_mc[:, None, None]
                 ffld = self.field_pred(r0y, r0u, r0v, mvf2, sel_f, rnd)
@@ -302,10 +344,14 @@ class ReconField(_Picture):
 class _EncodePicture(_Picture):
     """Shared stages of the encoder's picture programs over mb_w x mb_h
     macroblocks: the source and prediction as (nmb, 6, 8, 8) blocks,
-    the motion search against one reference, and FDCT + H.263 quant."""
+    the motion search against one reference, FDCT, and the quantisers of
+    MPEG-4 quant_type 0 ('h263') and 1 ('mpeg4mq')."""
 
-    def __init__(self, mb_w: int, mb_h: int, search_range: int):
-        super().__init__(mb_w, mb_h, False, "h263")
+    def __init__(self, mb_w: int, mb_h: int, search_range: int,
+                 quant_kind: str = "h263"):
+        if quant_kind not in ("h263", "mpeg4mq"):
+            raise ValueError(f"no MPEG-4 encoder quantiser {quant_kind!r}")
+        super().__init__(mb_w, mb_h, False, quant_kind)
         self.register_buffer("zz", torch.as_tensor(
             zigzag_scan().astype(np.int64)))
         self.fullpel = FullPelSearch(mb_w, mb_h, search_range)
@@ -334,31 +380,56 @@ class _EncodePicture(_Picture):
         fmv, _ = self.fullpel(cur_mbs, ref_y)
         return self.refine(cur_mbs, ref_y, fmv)
 
-    def quantize(self, src, qscale):
+    def quantize(self, src, qscale, intra=None, intra_qmat_zz=None,
+                 inter_qmat_zz=None):
         """(nmb, 6, 8, 8) int32 -> (FDCT coefficients (n6, 64) raster,
-        the same in zigzag order, H.263 levels (n6, 64) zigzag: sign(c)
-        (|c| // 16 q), clipped to +-255)."""
+        the same in zigzag order, levels (n6, 64) zigzag). 'h263':
+        sign(c) (|c| // 16 q), clipped to +-255. 'mpeg4mq': the matrix
+        steps q M in zigzag order, rounded for intra blocks (the (nmb,)
+        flags intra) and truncated for inter ones, clipped to +-2047. (The
+        JAX B program floors its steps at 1, which never binds: q >= 1
+        and every matrix entry is >= 1, a 0 ending the VOL's list.)"""
         coeffs8 = fdct8x8_int(src.reshape(self.nmb * 6, 8, 8)) \
             .reshape(self.nmb * 6, 64)
         czz = coeffs8[:, self.zz]
-        q16 = 16 * qscale.to(torch.int32).repeat_interleave(6)[:, None]
-        levels = (torch.sign(czz) * (czz.abs() // q16)).clamp(-255, 255)
-        return coeffs8, czz, levels
+        qs6 = qscale.to(torch.int32).repeat_interleave(6)[:, None]
+        if self.quant_kind == "h263":
+            levels = (torch.sign(czz) * (czz.abs() // (16 * qs6))) \
+                .clamp(-255, 255)
+            return coeffs8, czz, levels
+        # MPEG-4 quant_type 1: the >>3 / >>4 scale of the mpeg4_mq
+        # dequant pair, which these steps invert
+        qi = qs6 * intra_qmat_zz.to(torch.int32)[None, :]
+        qp = qs6 * inter_qmat_zz.to(torch.int32)[None, :]
+        lv_i = torch.sign(czz) * ((czz.abs() + qi // 2) // qi)
+        lv_p = torch.sign(czz) * (czz.abs() // qp)
+        if intra is None:
+            lv = lv_p
+        else:
+            lv = torch.where(intra.repeat_interleave(6)[:, None], lv_i, lv_p)
+        return coeffs8, czz, lv.clamp(-2047, 2047)
 
 
 class Encode(_EncodePicture):
-    """I or P picture encode, the JAX encode_jit program for the 'h263'
-    kind (MPEG-4 quant_type 0): pixels (+ reference) -> levels (nmb, 6,
-    64) in zigzag order, half-pel vectors and intra decisions. A P
-    macroblock goes intra when its SAD about its mean, plus 256, is
-    below its best inter SAD; the residual's chroma prediction uses
-    MPEG-1/2 chroma vectors, as the JAX program's does. Intra DC levels
-    are rounded by the DC scaler."""
+    """I or P picture encode, the JAX encode_jit program for the MPEG-4
+    kinds 'h263' (quant_type 0) and 'mpeg4mq' (quant_type 1, the
+    matrices in zigzag order): pixels (+ reference) -> levels (nmb, 6,
+    64) in zigzag order, half-pel vectors and intra decisions. With
+    mbcmp 'sad' a P macroblock goes intra when its SAD about its mean,
+    plus 256, is below its best inter SAD; with 'satd' the same test on
+    16x16 Hadamard costs (the mean difference truncated to integers, as
+    the JAX program's float32 mean and int32 cast do). The residual's
+    chroma prediction uses MPEG-1/2 chroma vectors, as the JAX program's
+    does. Intra DC levels are rounded by the DC scaler."""
 
     def __init__(self, mb_w: int, mb_h: int, inter: bool,
-                 search_range: int = 15, want_coeffs: bool = False):
-        super().__init__(mb_w, mb_h, search_range)
+                 search_range: int = 15, want_coeffs: bool = False,
+                 quant_kind: str = "h263", mbcmp: str = "sad"):
+        if mbcmp not in ("sad", "satd"):
+            raise ValueError(f"no mbcmp {mbcmp!r}")
+        super().__init__(mb_w, mb_h, search_range, quant_kind)
         self.inter, self.want_coeffs = inter, want_coeffs
+        self.mbcmp = mbcmp
 
     def forward(self, cur_y, cur_u, cur_v, qscale, intra_qmat_zz,
                 inter_qmat_zz, r0y, r0u, r0v):
@@ -366,12 +437,23 @@ class Encode(_EncodePicture):
         dev = blocks.device
         if self.inter:
             mv, sad = self.motion(cur_mbs, r0y)
-            # floor(sum |x - S/256|) in integers: the JAX program's
-            # float32 sum is exact (multiples of 1/256 below 2^16)
             s = cur_mbs.sum(dim=(1, 2), dtype=torch.int32)[:, None, None]
-            intra_cost = (256 * cur_mbs - s).abs().sum(
-                dim=(1, 2), dtype=torch.int32) >> 8
-            use_intra = intra_cost + 256 < sad
+            if self.mbcmp == "satd":
+                # trunc(x - S/256): the JAX program's float32 difference
+                # is exact (multiples of 1/256 below 2^8) and its int32
+                # cast truncates toward zero
+                dmean = torch.div(256 * cur_mbs - s, 256,
+                                  rounding_mode="trunc")
+                pred16 = mc_hpel(r0y, self.x16, self.y16, mv[:, 0],
+                                 mv[:, 1], 16)
+                use_intra = satd16_of(dmean) + 256 < \
+                    satd16_of(cur_mbs - pred16)
+            else:
+                # floor(sum |x - S/256|) in integers: the JAX program's
+                # float32 sum is exact (multiples of 1/256 below 2^16)
+                intra_cost = (256 * cur_mbs - s).abs().sum(
+                    dim=(1, 2), dtype=torch.int32) >> 8
+                use_intra = intra_cost + 256 < sad
             pred = self.mc6((r0y, r0u, r0v), mv, 1, chroma_mv=chroma_mv_div2)
             src = torch.where(use_intra[:, None, None, None], blocks,
                               blocks - self.blocks(*pred))
@@ -379,7 +461,8 @@ class Encode(_EncodePicture):
             mv = torch.zeros((self.nmb, 2), dtype=torch.int32, device=dev)
             use_intra = torch.ones((self.nmb,), dtype=torch.bool, device=dev)
             src = blocks
-        coeffs8, czz, levels = self.quantize(src, qscale)
+        coeffs8, czz, levels = self.quantize(src, qscale, use_intra,
+                                             intra_qmat_zz, inter_qmat_zz)
         # intra DC by the DC scaler (true DCT scale = coeffs8 / 8)
         qs6 = qscale.to(torch.int32).repeat_interleave(6)
         qdc = 8 * quant_ops.dc_scaler(qs6, self.luma_blk)
@@ -397,12 +480,14 @@ class EncodeB(_EncodePicture):
     """B picture encode, the JAX encode_b_h263_jit program: forward and
     backward half-pel search, a per-MB choice of forward, backward or bi
     prediction by luma SAD (bi, (a + b + 1) >> 1, wins only by more than
-    128), the residual's FDCT and the H.263 inter quantiser. -> (levels
-    (nmb, 6, 64) zigzag, forward and backward vectors, sel 0 forward, 1
-    backward, 2 bi, the chosen mode's SAD)."""
+    128), the residual's FDCT and the inter quantiser ('h263' or
+    'mpeg4mq'). -> (levels (nmb, 6, 64)
+    zigzag, forward and backward vectors, sel 0 forward, 1 backward, 2
+    bi, the chosen mode's SAD)."""
 
-    def __init__(self, mb_w: int, mb_h: int, search_range: int = 12):
-        super().__init__(mb_w, mb_h, search_range)
+    def __init__(self, mb_w: int, mb_h: int, search_range: int = 12,
+                 quant_kind: str = "h263"):
+        super().__init__(mb_w, mb_h, search_range, quant_kind)
 
     def forward(self, cur_y, cur_u, cur_v, qscale, intra_qmat_zz,
                 inter_qmat_zz, r0y, r0u, r0v, r1y, r1u, r1v):
@@ -420,8 +505,28 @@ class EncodeB(_EncodePicture):
         m = sel[:, None, None]
         pred = [torch.where(m == 2, (a + b + 1) >> 1,
                             torch.where(m == 1, b, a)) for a, b in zip(pf, pb)]
-        _, _, levels = self.quantize(blocks - self.blocks(*pred), qscale)
+        _, _, levels = self.quantize(blocks - self.blocks(*pred), qscale,
+                                     None, intra_qmat_zz, inter_qmat_zz)
         return levels.reshape(self.nmb, 6, 64), mv_f, mv_b, sel, sad
+
+
+class GMCResidual(_EncodePicture):
+    """The levels of GMC macroblocks: source minus the zero-motion
+    prediction from the warped reference planes, FDCT, H.263 inter quant
+    (the JAX encoder's _gmc_resid_jit; GMC is coded with quant_type 0
+    only)."""
+
+    def __init__(self, mb_w: int, mb_h: int):
+        super().__init__(mb_w, mb_h, 1)
+
+    def forward(self, cur_y, cur_u, cur_v, wy, wu, wv, qscale):
+        _, cur = self.source(cur_y, cur_u, cur_v)
+        H, W = self.mb_h * 16, self.mb_w * 16
+        _, pred = self.source(wy[EDGE:EDGE + H, EDGE:EDGE + W],
+                              wu[EDGE:EDGE + H // 2, EDGE:EDGE + W // 2],
+                              wv[EDGE:EDGE + H // 2, EDGE:EDGE + W // 2])
+        _, _, levels = self.quantize(cur - pred, qscale)
+        return levels.reshape(self.nmb, 6, 64)
 
 
 class FieldsOfFrame(nn.Module):
@@ -475,15 +580,24 @@ def weave_fields(mb_w: int, mb_h: int, *,
 
 
 @functools.lru_cache(maxsize=32)
-def encode(mb_w: int, mb_h: int, inter: bool, search_range: int = 15,
-           want_coeffs: bool = False, *, device: torch.device) -> Encode:
-    return Encode(mb_w, mb_h, inter, search_range, want_coeffs).to(device)
+def encode(mb_w: int, mb_h: int, inter: bool, quant_kind: str = "h263",
+           search_range: int = 15, want_coeffs: bool = False,
+           mbcmp: str = "sad", *, device: torch.device) -> Encode:
+    return Encode(mb_w, mb_h, inter, search_range, want_coeffs, quant_kind,
+                  mbcmp).to(device)
 
 
 @functools.lru_cache(maxsize=16)
-def encode_b_h263(mb_w: int, mb_h: int, search_range: int = 12, *,
+def encode_b_h263(mb_w: int, mb_h: int, quant_kind: str = "h263",
+                  search_range: int = 12, *,
                   device: torch.device) -> EncodeB:
-    return EncodeB(mb_w, mb_h, search_range).to(device)
+    return EncodeB(mb_w, mb_h, search_range, quant_kind).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def gmc_residual(mb_w: int, mb_h: int, *,
+                 device: torch.device) -> GMCResidual:
+    return GMCResidual(mb_w, mb_h).to(device)
 
 
 @functools.lru_cache(maxsize=8)

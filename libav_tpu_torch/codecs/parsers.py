@@ -5,9 +5,9 @@ mpegvideo parser).
 
 The raw-format demuxers use the same split functions; this module exposes
 them behind the AVCodecParser-style push API for callers that feed
-arbitrary byte chunks. The port's copy holds the parsers of the codecs
-it decodes (MPEG-1/2 video, H.264); the MPEG-4, AC-3 and AAC parsers come
-with their codecs (ROADMAP.md module queue, steps 8b and 10).
+arbitrary byte chunks. The port's copy holds the parsers of the video
+codecs it decodes (MPEG-1/2 video, MPEG-4 part 2, H.264); the AC-3 and
+AAC streams are split by their demuxers.
 """
 
 from __future__ import annotations
@@ -72,6 +72,16 @@ class MpegVideoParser(Parser):
 @register_parser
 class Mpeg2VideoParser(MpegVideoParser):
     NAME = "mpeg2video"
+
+
+@register_parser
+class MPEG4VideoParser(Parser):
+    """reference: mpeg4video_parser.c — split at VOP start codes."""
+    NAME = "mpeg4"
+
+    def _split(self, buf, eof):
+        from libav_tpu_torch.formats.m4v import split_vops
+        return _chunked_split(list(split_vops(buf)), buf, eof)
 
 
 @register_parser

@@ -1,8 +1,11 @@
-"""MPEG-1/2 and H.263 inverse quantisation, MPEG-2 mismatch control, the
-MPEG-4 DC scaler and the scans (counterpart of `libav_tpu/ops/quant.py`
-mpeg1_dequant_intra/inter, mpeg2_dequant_intra/inter,
-mpeg2_mismatch_control, h263_dequant, mpeg4_dc_scaler and dezigzag;
-reference: mpegvideo.c dct_unquantize_mpeg1_* / _mpeg2_* / _h263_*).
+"""MPEG-1/2, H.263 and MPEG-4 matrix inverse quantisation, MPEG-2
+mismatch control, the MPEG-4 DC scaler and the scans (counterpart of
+`libav_tpu/ops/quant.py` mpeg1_dequant_intra/inter,
+mpeg2_dequant_intra/inter, mpeg2_mismatch_control, h263_dequant,
+mpeg4_dc_scaler, mpeg4_mq_dequant_intra/inter and dezigzag; reference:
+mpegvideo.c dct_unquantize_mpeg1_* / _mpeg2_* / _h263_* and the bitexact
+MPEG-4 matrix pair). The JAX module's encoder-side `mpeg_quant` has no
+caller in the port and is left out.
 
 Elementwise int32 over (B, 64) coefficients, as in the JAX package: with
 int16 levels, qscale <= 112 and matrix entries <= 255 no product leaves
@@ -191,3 +194,38 @@ def dc_scaler(qscale: torch.Tensor, luma: torch.Tensor) -> torch.Tensor:
         q < 25, q + 8, 2 * q - 16)))
     chroma = torch.where(q < 5, 8, torch.where(q < 25, (q + 13) // 2, q - 6))
     return torch.where(luma, lum, chroma).to(torch.int32)
+
+
+# ---------------------------------------------------------------------- #
+# The MPEG-4 quant_type 1 pair
+# ---------------------------------------------------------------------- #
+
+def _toggle_63(deq: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """block[63] ^= s & 1 (s is a sum, widened by torch; its parity is
+    the int32 sum's)."""
+    out = deq.clone()
+    out[:, 63] = deq[:, 63] ^ (s & 1).to(deq.dtype)
+    return out
+
+
+def mpeg4_mq_dequant_intra(coeffs, qs, qmat, dcs):
+    """MPEG-4 quant_type=1 intra dequant, bitexact variant (reference
+    mpegvideo.c:142 dct_unquantize_mpeg2_intra_bitexact as wired for
+    MPEG-4): AC = sign*((|l|*qscale*M)>>3), DC = l*dc_scaler, then the
+    parity fix block[63] ^= (sum_AC - 1) & 1. coeffs (B, 64) and qmat
+    (64,) in the same scan order, qs and dcs (B,); slot 63 is raster 63
+    in every scan."""
+    c, q, m = _operands(coeffs, qs, qmat)
+    deq = torch.sign(c) * ((c.abs() * q * m) >> 3)
+    deq[:, 0] = c[:, 0] * torch.as_tensor(dcs, dtype=torch.int32,
+                                          device=c.device)
+    return _toggle_63(deq, deq[:, 1:].sum(dim=1) - 1)
+
+
+def mpeg4_mq_dequant_inter(coeffs, qs, qmat):
+    """MPEG-4 quant_type=1 inter dequant (reference mpegvideo.c:175
+    dct_unquantize_mpeg2_inter_c): sign*(((2|l|+1)*qscale*M)>>4) for
+    nonzero l, then block[63] ^= (sum - 1) & 1."""
+    c, q, m = _operands(coeffs, qs, qmat)
+    deq = torch.sign(c) * (((2 * c.abs() + 1) * q * m) >> 4)
+    return _toggle_63(deq, deq.sum(dim=1) - 1)

@@ -25,7 +25,9 @@ bench stream's settings, a CLI input for the CPU tests.
 `libav_tpu.tools.avprobe -show_frames` printed for that stream's input.
 `mpeg4_1080p_from_ipbb.golden.json` is the JAX package's MPEG-4 encode
 of that stream's 7 decoded frames (MPEG4_SETTINGS), as digests only: no
-encoded video is committed.
+encoded video is committed. `mpeg4_asp.golden.json` and
+`mpeg4_asp.framecrc` hold the MPEG-4 ASP decode's goldens
+(MPEG4_ASP_RUNS), digests and framecrc text only.
 All files are written by `tools/gen_torch_smoke_stream.py`.
 """
 
@@ -67,6 +69,23 @@ MPEG4_SOURCE = "mpeg2_1080p_ipbb"
 MPEG4_SETTINGS = {"qscale": 6, "gop_size": 12, "b_frames": 2, "bdirect": 7}
 MPEG4_CLI_ARGS = ("-c:v", "mpeg4", "-q:v", "6", "-g", "12", "-bf", "2",
                   "-f", "m4v")
+# MPEG-4 ASP decode (mpeg4_asp.golden.json): the same 7 frames encoded
+# three more times, each run's options over MPEG4_SETTINGS (A:
+# quarter-sample + MPEG quantiser + AC prediction, no B-VOPs; B: GMC
+# S-VOPs with 3 warping points at 1/16 pel and B-VOPs; C: video packets
+# of 8192 bytes, data partitioning, the SATD decision); its golden holds
+# each run's packet digests and the JAX decoder's frame digests, those of
+# the phase-10 packets (MPEG4_SETTINGS), those of C with packet
+# MPEG4_ASP_CUT (a P-VOP) cut to its first half, and the JAX CLI's
+# framecrc of A's packets written as asp.m4v
+MPEG4_ASP = "mpeg4_asp"
+MPEG4_ASP_RUNS = {
+    "A": {"qpel": 1, "mpegq": 1, "acpred": 1, "b_frames": 0},
+    "B": {"gmc": 3, "gmc_acc": 3, "b_frames": 2},
+    "C": {"ps": 8192, "data_partitioning": 1, "mbcmp": "satd",
+          "b_frames": 2},
+}
+MPEG4_ASP_CUT = 1
 
 
 # the config-5 chain: name -> (codec, seconds, channels, encoder
@@ -111,6 +130,25 @@ def config5_golden_path() -> str:
 
 def mpeg4_golden_path() -> str:
     return os.path.join(HERE, MPEG4_SMOKE + ".golden.json")
+
+
+def mpeg4_asp_paths():
+    """(golden JSON, the JAX CLI's framecrc of asp.m4v) of the ASP
+    decode."""
+    return (os.path.join(HERE, MPEG4_ASP + ".golden.json"),
+            os.path.join(HERE, MPEG4_ASP + ".framecrc"))
+
+
+def mpeg4_asp_settings(run: str) -> Dict:
+    return {**MPEG4_SETTINGS, **MPEG4_ASP_RUNS[run]}
+
+
+def cut_packet(datas: Sequence[bytes], index: int) -> List[bytes]:
+    """datas with packet index cut to its first half (a damaged video
+    packet for the decoders' concealment)."""
+    out = list(datas)
+    out[index] = datas[index][:len(datas[index]) // 2]
+    return out
 
 
 def stream_paths(name: str):
@@ -245,11 +283,19 @@ def _mb_arrays(rng, nmb: int, inter: bool, interlaced: bool, dual: bool):
 
 
 def recon_inputs(seed, mb_w: int, mb_h: int, inter: bool = True,
-                 interlaced: bool = False, dual: bool = False):
+                 interlaced: bool = False, dual: bool = False,
+                 four_mv: bool = False):
     """Random (args, kwargs) of numpy arrays for a frame-picture recon
-    program (the JAX recon_jit's and the port's `recon`)."""
+    program (the JAX recon_jit's and the port's `recon`); four_mv adds
+    the 4MV inputs use4, mv4f and mv4b."""
     rng = np.random.default_rng(seed)
     a = _mb_arrays(rng, mb_w * mb_h, inter, interlaced, dual)
+    if four_mv:
+        nmb = mb_w * mb_h
+        mv4 = rng.integers(-40, 41, (2, nmb, 4, 2))
+        mv4[:, ::5] = rng.integers(-200, 200, (2, len(mv4[0, ::5]), 4, 2))
+        a.update(use4=rng.random(nmb) < 0.5,
+                 mv4f=mv4[0].astype(np.int32), mv4b=mv4[1].astype(np.int32))
     H, W = 16 * mb_h, 16 * mb_w
     args = [a.pop(k) for k in ("coeffs", "qscale", "intra", "use_fwd",
                                "use_bwd", "mv_fwd", "mv_bwd", "intra_q",

@@ -22,17 +22,17 @@ port's codec table and devices:
 
 run on CUDA and exit nonzero with a message where there is none;
 `main(argv, device="cpu")` runs the same path on the CPU. The decoders
-are the port's (H.264 with kernel K1, MPEG-1/2 and MJPEG with kernel K2)
-on that one device, and so are the audio decoders (AAC with its IMDCT
+are the port's (H.264 with kernel K1; MPEG-1/2, MPEG-4 part 2 from .m4v
+or AVI FMP4/XVID/DIVX, and MJPEG with kernel K2) on that one device, and so are the audio decoders (AAC with its IMDCT
 on the device; AC-3/E-AC-3 and PCM on the host) and rawvideo (planes
 uploaded to the device). `-s` and `-pix_fmt` run the port's swscale on
 the frames' device (YUV -> RGB through kernel `sws_yuv2rgb` on the
 card); `-ar`, `-ac` and `-sample_fmt` run the port's avresample on the
 host. The encoders are the host ones, rawvideo and PCM,
 and the MPEG-4 part 2 encoder (`-c:v mpeg4` with `-q:v`, `-g`, `-bf`
-and its pass-through options), whose device programs run on the same
-device: decoded frames reach it as tensors there, with no trip to the
-host. Any other encoder raises ENCODER_NOT_FOUND naming the ROADMAP.md
+and its pass-through options, qpel and mpegq among them), whose device
+programs run on the same device: decoded frames reach it as tensors
+there, with no trip to the host. Any other encoder raises ENCODER_NOT_FOUND naming the ROADMAP.md
 step that ports its device part. `-prof DIR` writes a torch.profiler
 Chrome trace into DIR plus the host timer report (with the H.264
 decoder's `h264.entropy` span). Filters (`-vf`, `-af`,

@@ -229,6 +229,49 @@ class TestKernelsOnCard:
         assert out["cuda"] == out["cpu"]
         assert launches == (n if b_frames == 0 else 3)
 
+    @pytest.mark.parametrize("settings", [
+        {"qpel": 1, "mpegq": 1, "acpred": 1},
+        {"gmc": 3, "b_frames": 2},
+        {"gmc": 1, "gmc_acc": 1},
+        {"ps": 60, "data_partitioning": 1, "mbcmp": "satd", "b_frames": 2}])
+    def test_mpeg4_asp_roundtrip(self, settings):
+        """The MPEG-4 encoder's ASP options and the decoder on the card
+        give the CPU's packets and frames, with one K2 launch per coded
+        VOP in the decode."""
+        from libav_tpu_torch.avutil.frame import Frame, Packet
+        from libav_tpu_torch.codecs.api import CodecParameters, MediaType
+        from libav_tpu_torch.codecs.mpeg4 import MPEG4Decoder, MPEG4Encoder
+        w, h, n = 80, 48, 6
+        rng = np.random.default_rng(7)
+        base = rng.integers(16, 235, (h * 3 // 2, w)).astype(np.uint8)
+        frames = []
+        for t in range(n):
+            fl = np.roll(np.roll(base, 3 * t, axis=1), t, axis=0)
+            f = Frame(width=w, height=h, format="yuv420p")
+            f.planes = [fl[:h].copy(),
+                        fl[h:h + h // 4].reshape(h // 2, w // 2).copy(),
+                        fl[h + h // 4:].reshape(h // 2, w // 2).copy()]
+            f.pts = t
+            frames.append(f)
+        par = CodecParameters(codec_type=MediaType.VIDEO, codec_id="mpeg4",
+                              width=w, height=h, pix_fmt="yuv420p")
+        pkts, planes = {}, {}
+        for dev in ("cpu", "cuda"):
+            enc = MPEG4Encoder(par, device=dev)
+            for k, v in settings.items():
+                enc.set_opt(k, v)
+            pkts[dev] = [p.data for p in enc.encode_all(frames)]
+            before = tidct.idct8x8_int.launches
+            out = MPEG4Decoder(device=dev).decode_all(
+                Packet(data=d, pts=i) for i, d in enumerate(pkts[dev]))
+            torch.cuda.synchronize()
+            launches = tidct.idct8x8_int.launches - before
+            planes[dev] = [p.cpu() for f in out for p in f.planes]
+        assert pkts["cuda"] == pkts["cpu"]
+        assert all(torch.equal(a, b) for a, b in
+                   zip(planes["cuda"], planes["cpu"]))
+        assert len(planes["cuda"]) == 3 * n and launches == n
+
     @pytest.mark.parametrize("B", [1, 127, 128, 513, 49152])
     def test_edge_filter_pm(self, B):
         """P2, qp 0-51 and bS 0-4."""

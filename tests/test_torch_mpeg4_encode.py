@@ -240,6 +240,38 @@ def test_encode_b_h263(mb_w, mb_h):
     assert len(np.unique(np.asarray(want[3]))) >= 2
 
 
+@pytest.mark.parametrize("kind,mbcmp", [("mpeg4mq", "sad"),
+                                        ("h263", "satd"),
+                                        ("mpeg4mq", "satd")])
+@pytest.mark.parametrize("inter", [False, True])
+def test_encode_mpegq_and_satd(kind, mbcmp, inter):
+    """The I/P program with the MPEG quantiser (random matrices in zigzag
+    order) and the Hadamard intra decision."""
+    cur, qscale, refs = _encode_inputs(190 + inter, 5, 4, 1)
+    rng = np.random.default_rng(191)
+    qi, qp = (rng.integers(8, 64, 64).astype(np.int32) for _ in range(2))
+    args = [*cur, qscale, qi, qp, *refs]
+    want = jmv.encode_jit(5, 4, inter, kind, mbcmp=mbcmp)(*args)
+    got = tmv.encode(5, 4, inter, kind, mbcmp=mbcmp, device=CPU)(
+        *state_from_numpy(args, CPU))
+    _eq_tree(got, want)
+    if inter:
+        intra = np.asarray(want[2])
+        assert intra.any() and (~intra).any()
+
+
+def test_encode_b_mpegq():
+    cur, qscale, refs = _encode_inputs(195, 5, 4, 2)
+    rng = np.random.default_rng(196)
+    qi, qp = (rng.integers(8, 64, 64).astype(np.int32) for _ in range(2))
+    args = [*cur, qscale, qi, qp, *refs]
+    want = jmv.encode_b_h263_jit(5, 4, "mpeg4mq")(*args)
+    got = tmv.encode_b_h263(5, 4, "mpeg4mq", device=CPU)(
+        *state_from_numpy(args, CPU))
+    _eq_tree(got, want)
+    assert np.asarray(want[0]).any()
+
+
 @pytest.mark.parametrize("mb_w,mb_h,inter", [(4, 3, False), (5, 3, True),
                                              (6, 4, True)])
 def test_recon_h263(mb_w, mb_h, inter):
@@ -256,12 +288,22 @@ def test_recon_h263(mb_w, mb_h, inter):
                                    dict(quant_kind="mpeg4"),
                                    dict(qpel=True), dict(any_4mv=True)])
 def test_unported_programs_raise(flags):
-    """The MPEG-4 reconstructions beside the 'h263' kind's default path:
-    the MPEG quantisers, quarter-sample MC and 4MV."""
+    """The MPEG-4 reconstructions beside the 'h263' kind's default path,
+    once refused, now held against the JAX program: the MPEG quantisers
+    (with the matrices), quarter-sample MC and 4MV, in both rounding
+    modes."""
     key = dict(quant_kind="h263", alt_scan=False, inter_frame=True)
     key.update(flags)
-    with pytest.raises(NotImplementedError, match="step 8b"):
-        tmv.recon(2, 2, device=CPU, **key)
+    four = bool(flags.get("any_4mv"))
+    for rounding in (0, 1):
+        args, kw = testdata.recon_inputs(170 + rounding, 5, 3, True,
+                                         four_mv=four)
+        args[1] = np.clip(args[1], 1, 31).astype(np.int32)
+        key["rounding"] = rounding
+        want = jmv.recon_jit(5, 3, **key)(*args, **kw)
+        got = tmv.recon(5, 3, device=CPU, **key)(
+            *state_from_numpy(args, CPU), **state_from_numpy(kw, CPU))
+        _eq_tree(got, want)
 
 
 # ---------------------------------------------------------------------- #
@@ -331,11 +373,26 @@ def test_encoder_takes_tensor_frames():
 @pytest.mark.parametrize("opt,value", [("qpel", 1), ("gmc", 1), ("mpegq", 1),
                                        ("mbcmp", "satd")])
 def test_unported_options_raise(opt, value):
+    """The options once refused at open (quarter-sample, GMC, the MPEG
+    quantiser, the SATD decision) now write the JAX encoder's packets and
+    anchors; qpel with B-frames and gmc with mpegq keep the JAX encoder's
+    EINVAL."""
+    settings = {opt: value, "gop_size": 5,
+                "b_frames": 0 if opt == "qpel" else 2}
+    frames = [pattern(64, 48, t) for t in range(5)]
+    want, want_anchors = encode_mpeg4(frames, settings)
+    got, got_anchors = port_encode(_port_frames(frames), settings)
+    assert got == want
+    _eq_tree(got_anchors, want_anchors)
+    bad = {"qpel": {"b_frames": 1}, "gmc": {"mpegq": 1},
+           "mpegq": {"gmc": 1}, "mbcmp": {"qpel": 1, "b_frames": 2}}[opt]
     enc = find_encoder("mpeg4")(CodecParameters(
         codec_type=MediaType.VIDEO, codec_id="mpeg4", width=32, height=32,
         pix_fmt="yuv420p"), device="cpu")
     enc.set_opt(opt, value)
-    with pytest.raises(NotImplementedError, match="step 8b"):
+    for k, v in bad.items():
+        enc.set_opt(k, v)
+    with pytest.raises(AVError, match="not supported"):
         enc.open()
 
 

@@ -268,9 +268,22 @@ def test_zero_pad_refs():
                                    dict(quant_kind="mpeg4"),
                                    dict(quant_kind="mpeg4mq")])
 def test_mpeg4_family_is_refused(flags):
-    """The H.263/MPEG-4 quantisers but 'h263' (ported with the MPEG-4
-    encoder, tests/test_torch_mpeg4_encode.py), qpel and 4MV."""
+    """The H.263 short-header and WMV1 quantisers stay refused (step 8b);
+    the rest of the MPEG-4 family's reconstruction, ported since, holds
+    the JAX program's planes: qpel and 4MV on the H.263 dequant, and the
+    'mpeg4' and 'mpeg4mq' quantisers."""
     key = dict(quant_kind="mpeg2", alt_scan=False, inter_frame=True)
     key.update(flags)
-    with pytest.raises(NotImplementedError, match="step 8b"):
-        tmv.recon(4, 2, device=CPU, **key)
+    if key["quant_kind"] in ("h263sh", "wmv1"):
+        with pytest.raises(NotImplementedError, match="step 8b"):
+            tmv.recon(4, 2, device=CPU, **key)
+        return
+    if key["quant_kind"] == "mpeg2":
+        key["quant_kind"] = "h263"
+    args, kw = testdata.recon_inputs(90, 4, 2, True,
+                                     four_mv=bool(flags.get("any_4mv")))
+    args[1] = np.clip(args[1], 1, 31).astype(np.int32)
+    want = jmv.recon_jit(4, 2, **key)(*args, **kw)
+    got = tmv.recon(4, 2, device=CPU, **key)(*state_from_numpy(args, CPU),
+                                             **state_from_numpy(kw, CPU))
+    _eq_tree(got, want)

@@ -72,7 +72,8 @@ def test_sources_cover_the_port():
                  "codecs/mpeg4/dec.py", "codecs/mpeg4/tables.py",
                  "codecs/trellis.py", "codecs/ratecontrol.py",
                  "avutil/eval.py", "formats/m4v.py", "ops/me.py",
-                 "ops/fdct.py"):
+                 "ops/fdct.py", "ops/gmc.py", "ops/mecmp.py", "ops/mc.py",
+                 "ops/quant.py", "codecs/parsers.py", "codecs/er.py"):
         assert "libav_tpu_torch/" + path in SOURCES
     on_disk = glob.glob(os.path.join(REPO, "libav_tpu_torch", "*", "*.py"))
     assert len(SOURCES) > len(on_disk)
@@ -137,6 +138,43 @@ print("ok")
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]
     with open(want, "rb") as f, open(tmp_path / "port.m4v", "rb") as g:
         assert g.read() == f.read()
+
+
+def test_mpeg4_decode_with_jax_package_refused(tmp_path):
+    """The port decodes an MPEG-4 ASP stream (qpel, mpegq, GMC with B-VOPs,
+    data partitioning) through its avconv in a process where jax and
+    libav_tpu cannot be imported: the JAX CLI's framecrc."""
+    from tools.gen_torch_smoke_stream import encode_mpeg4, pattern
+    runs = {"qpel": {"qpel": 1, "mpegq": 1, "acpred": 1},
+            "gmc": {"gmc": 3, "b_frames": 2},
+            "dp": {"ps": 80, "data_partitioning": 1, "mbcmp": "satd"}}
+    want = {}
+    for name, settings in runs.items():
+        datas, _ = encode_mpeg4([pattern(64, 48, t) for t in range(4)],
+                                settings)
+        with open(tmp_path / f"{name}.m4v", "wb") as f:
+            f.write(b"".join(datas))
+        want[name] = _framecrc(jax_avconv, str(tmp_path / f"{name}.m4v"),
+                               str(tmp_path / f"{name}.jax"))
+    code = IMPORT_GUARD + f"""
+import json
+import torch
+torch.set_num_threads(1)
+from libav_tpu_torch.tools import avconv
+out = {{}}
+for name in {sorted(runs)!r}:
+    assert avconv.main(["-i", name + ".m4v", "-f", "framecrc",
+                        name + ".crc"], device="cpu") == 0
+    out[name] = open(name + ".crc").read()
+loaded = sorted(m for m, v in sys.modules.items() if v is not None
+                and m.split(".")[0] in {REFUSED!r})
+assert loaded == [], loaded
+print(json.dumps(out))
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600, cwd=str(tmp_path))
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == want
 
 
 def test_guard_refuses(tmp_path):

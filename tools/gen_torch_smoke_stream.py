@@ -27,6 +27,15 @@ package's decoder, and written with its golden into
             each packet's size and md5 and each anchor's reconstruction;
             and the md5 of `libav_tpu.tools.avconv -i ipbb.m2v
             <testdata.MPEG4_CLI_ARGS> out.m4v`
+    mpeg4asp  mpeg4_asp.{golden.json,framecrc}: the same 7 frames
+            encoded with each of testdata.MPEG4_ASP_RUNS (qpel + mpegq +
+            acpred; gmc 3 points with B-VOPs; video packets + data
+            partitioning + satd), each packet's size and md5 and the JAX
+            decoder's frame digests; the JAX decoder's digests of the
+            MPEG4_SETTINGS packets and of run C with packet
+            MPEG4_ASP_CUT cut in half; and the framecrc of
+            `libav_tpu.tools.avconv -i asp.m4v -f framecrc` on run A's
+            packets (~15 min)
     config5 the config-5 chain (testdata.AUDIO_STREAMS, AUDIO_RUNS,
             VIDEO_RUNS): AC-3 5.0 and stereo and ADTS AAC-LC streams
             encoded from audio_signal(); config5.golden.json with the md5
@@ -41,7 +50,8 @@ writes all of them; the H.264 stream takes ~80 s, each MPEG-2 one ~25 s;
 framecrc, mpeg4 and config5 need the streams written first):
 
     JAX_PLATFORMS=cpu python tools/gen_torch_smoke_stream.py \
-        [h264] [mpeg2] [mjpeg] [small] [framecrc] [mpeg4] [config5]
+        [h264] [mpeg2] [mjpeg] [small] [framecrc] [mpeg4] [mpeg4asp] \
+        [config5]
 """
 
 from __future__ import annotations
@@ -297,6 +307,66 @@ def write_mpeg4():
           f" bytes than the packets")
 
 
+def decode_mpeg4(datas):
+    """The JAX package's MPEG-4 decoder on datas: host (Y, U, V) per
+    frame, in display order."""
+    from libav_tpu.avutil.frame import Packet
+    from libav_tpu.codecs.api import CodecParameters, MediaType, find_decoder
+    dec = find_decoder("mpeg4")(CodecParameters(
+        codec_type=MediaType.VIDEO, codec_id="mpeg4"))
+    return [[np.asarray(p) for p in f.planes] for f in dec.decode_all(
+        Packet(data=d, pts=i) for i, d in enumerate(datas))]
+
+
+def write_mpeg4_asp():
+    """The MPEG-4 ASP decode's goldens: digests and framecrc text only."""
+    import hashlib
+    from libav_tpu.avutil.frame import Packet
+    from libav_tpu.codecs.api import CodecParameters, MediaType, find_decoder
+    from libav_tpu.tools import avconv
+    dec = find_decoder("mpeg2video")(CodecParameters(
+        codec_type=MediaType.VIDEO, codec_id="mpeg2video"))
+    frames = dec.decode_all(Packet(data=d, pts=i) for i, d in
+                            enumerate(testdata.read_packets(
+                                testdata.stream_paths(
+                                    testdata.MPEG4_SOURCE)[0])))
+    gold = {"source": testdata.MPEG4_SOURCE,
+            "base_settings": testdata.MPEG4_SETTINGS, "runs": {}}
+    datas, _ = encode_mpeg4(frames, testdata.MPEG4_SETTINGS)
+    gold["phase10_decode"] = testdata.digest(decode_mpeg4(datas))
+    streams = {}
+    for run in testdata.MPEG4_ASP_RUNS:
+        settings = testdata.mpeg4_asp_settings(run)
+        streams[run], _ = encode_mpeg4(frames, settings)
+        gold["runs"][run] = {
+            "settings": settings,
+            "packets": [{"size": len(d), "md5": hashlib.md5(d).hexdigest()}
+                        for d in streams[run]],
+            "decode": testdata.digest(decode_mpeg4(streams[run]))}
+        print(f"mpeg4asp run {run}: {len(streams[run])} packets, "
+              f"{sum(len(d) for d in streams[run])} bytes", flush=True)
+    gold["cut"] = {"run": "C", "packet": testdata.MPEG4_ASP_CUT,
+                   "decode": testdata.digest(decode_mpeg4(
+                       testdata.cut_packet(streams["C"],
+                                           testdata.MPEG4_ASP_CUT)))}
+    golden, framecrc = testdata.mpeg4_asp_paths()
+    work = tempfile.mkdtemp()
+    try:
+        src = os.path.join(work, "asp.m4v")
+        with open(src, "wb") as f:
+            f.write(b"".join(streams["A"]))
+        out = os.path.join(work, "asp.framecrc")
+        if avconv.main(["-i", src, "-f", "framecrc", out]) != 0:
+            raise SystemExit("avconv -i asp.m4v failed")
+        shutil.copyfile(out, framecrc)
+    finally:
+        shutil.rmtree(work)
+    with open(golden, "w") as f:
+        json.dump(gold, f, indent=1)
+        f.write("\n")
+    print(f"{testdata.MPEG4_ASP}: goldens written")
+
+
 def main(which):
     if "h264" in which:
         write(testdata.SMOKE_STREAM, testdata.SMOKE_GOLDEN,
@@ -318,10 +388,12 @@ def main(which):
             write_framecrc(name, show_frames=name == "mpeg2_1080p_ipbb")
     if "mpeg4" in which:
         write_mpeg4()
+    if "mpeg4asp" in which:
+        write_mpeg4_asp()
     if "config5" in which:
         write_config5()
 
 
 if __name__ == "__main__":
     main(sys.argv[1:] or ("h264", "mpeg2", "mjpeg", "small", "framecrc",
-                          "mpeg4", "config5"))
+                          "mpeg4", "mpeg4asp", "config5"))
