@@ -15,7 +15,7 @@ Phases, in order; any failure exits nonzero and prints no result:
   2. K1 lines: h264_edge_filter_lines against the plain filter_edge_qp on
      the card over 6 x 2^20 random lines (bS 0-4, qp 0-51, luma and
      chroma, three offset pairs), exact; its time back to back and on the
-     device, warm and cold;
+     device, warm and cold, against its bound;
   3. frame deblock: deblock_frame_exact on random 1920x1088 planes, with
      part=False and part=True inputs and the 8x8-transform edge rule:
      the h264_deblock_frame kernel (one launch) equal to the plain version
@@ -30,7 +30,7 @@ Phases, in order; any failure exits nonzero and prints no result:
      (send_packet / receive_frame / drain), holds every frame's adler32
      and md5 against the golden that the JAX package produced, checks
      that the frame deblock kernel ran once per frame and the wave kernel
-     never, then times a warm second decode; then decodes it six more
+     and the line kernel never, then times a warm second decode; then decodes it six more
      times, the deblock in turns through the wave kernel and the frame
      kernel (wave, frame, frame, wave, wave, frame), each
      golden-identical, with the I and P/B frames' recon ms beside each
@@ -56,7 +56,7 @@ Phases, in order; any failure exits nonzero and prints no result:
      P2 against their plain versions on the card, exact, at the defaults
      and at B = 1 and 127 (P1) or 1 and 513 (P2); then the device time
      of K2, P1, K1's line kernel and P2 at those defaults with the inputs
-     warm in L2 and cold;
+     warm in L2 and cold, and K1's line kernel's time over P2's;
   8. MJPEG: decodes the committed 1080p stream (4 JPEGs) with the port's
      MJPEGDecoder on the card, one frame at a time and as one batch
      (decode_jpeg_batch); every frame's adler32 and md5 equal the golden,
@@ -372,8 +372,11 @@ def phase_lines(dev):
     log(f"phase 2 K1 lines: 6 x {n} lines exact, {changed} lines filtered; "
         f"luma 2^20 lines kernel {ms:.4f} ms back to back, {warm:.4f} ms on "
         f"the device warm, {cold:.4f} cold; bound {bound:.4f} ms ({nbytes} "
-        f"bytes); plain {plain_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        f"bytes): {100 * bound / warm:.1f}% warm, {100 * bound / cold:.1f}% "
+        f"cold; plain {plain_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "device_ms": warm, "cold_device_ms": cold, "bound_ms": bound,
+            "bytes": nbytes}
 
 
 def phase_deblock(dev):
@@ -567,14 +570,16 @@ def phase_decode(dev, card):
     nframes = len(gold["frames"])
 
     db.h264_deblock_frame.launches = db.h264_deblock_wave.launches = 0
+    db.h264_edge_filter_lines.launches = 0
     host, cold_s, recon_ms = decode(dev, datas, time_recon=True)
     launches = (db.h264_deblock_frame.launches,
-                db.h264_deblock_wave.launches)
+                db.h264_deblock_wave.launches,
+                db.h264_edge_filter_lines.launches)
     check_golden(host, gold, "first decode")
-    if launches != (nframes, 0):
-        raise AssertionError(f"h264_deblock_frame and h264_deblock_wave "
-                             f"launched {launches} times, expected "
-                             f"({nframes}, 0)")
+    if launches != (nframes, 0, 0):
+        raise AssertionError(f"h264_deblock_frame, h264_deblock_wave and "
+                             f"h264_edge_filter_lines launched {launches} "
+                             f"times, expected ({nframes}, 0, 0)")
     names = {1: "I", 2: "P", 3: "B"}
     per = ", ".join(f"{names.get(pt, pt)} {ms:.1f}" for pt, ms in recon_ms)
     log(f"phase 4 first decode: {nframes} frames adler32+md5 identical to "
@@ -842,6 +847,10 @@ def phase_probe(dev, card):
             f"{cold:.4f} cold (L2 flushed between launches); bound "
             f"{bound:.5f} ms ({nbytes} bytes): {100 * bound / warm:.1f}% "
             f"warm, {100 * bound / cold:.1f}% cold [{card}]")
+    k1, p2 = out["l2"]["K1 lines"], out["l2"]["P2"]
+    log(f"phase 7 K1 lines against P2 at {kernel_probe.DEBLOCK_BATCH} "
+        f"lines: {k1['device_ms'] / p2['device_ms']:.2f}x warm, "
+        f"{k1['cold_device_ms'] / p2['cold_device_ms']:.2f}x cold")
     return out
 
 
@@ -1708,6 +1717,7 @@ def main():
     from libav_tpu_torch import _kernels
     from libav_tpu_torch.avutil import hwdevice
     from libav_tpu_torch.codecs.h264 import dec as h264dec
+    from libav_tpu_torch.tools import kernel_probe
 
     # phase 0
     dev = hwdevice.device("cuda")
@@ -1749,6 +1759,7 @@ def main():
                 "mpeg4 decode": m4dec["launches"]}
 
     max_err = max(lines["max_abs_err"], deblock["max_abs_err"])
+    k1_49k, p2_49k = probe["l2"]["K1 lines"], probe["l2"]["P2"]
     k2_encode = f"{mpeg4['k2_device_ms']} ms"
     d = deblock["part=True"]
     frame_entry = deblock_record("h264_deblock_frame", "frame", launches[0],
@@ -1760,6 +1771,34 @@ def main():
     record = {"kernels": [
         frame_entry,
         deblock_record("h264_deblock_wave", "wave", launches[1], max_err, d),
+        {
+            "name": "h264_edge_filter_lines",
+            "route": "cuda",
+            "source": "libav_tpu_torch/csrc/h264_deblock.cu",
+            "replaces": "libav_tpu/ops/h264deblock.py:150",
+            "launches": launches[2],
+            "max_abs_err": lines["max_abs_err"],
+            "ms": lines["ms"],
+            "plain_ms": lines["plain_ms"],
+            "device_ms": lines["device_ms"],
+            "cold_device_ms": lines["cold_device_ms"],
+            "bound_ms": lines["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "library": NO_LIBRARY["deblock"],
+            "ms_is": f"2^20 (B, 8) luma lines, per-line qp and bS, per call "
+                     f"back to back by CUDA events; device_ms by "
+                     f"torch.profiler (cold_device_ms with the L2 flushed "
+                     f"between launches); bound: {lines['bytes']} bytes of "
+                     f"lines in and out, qp and bS in; launches: the bench "
+                     f"decode (its deblock is h264_deblock_frame); at "
+                     f"{kernel_probe.DEBLOCK_BATCH} lines (phase 7): device "
+                     f"{k1_49k['device_ms']} ms warm, "
+                     f"{k1_49k['cold_device_ms']} ms cold, bound "
+                     f"{k1_49k['bound_ms']} ms; P2 on the same lines "
+                     f"transposed {p2_49k['device_ms']} ms warm, "
+                     f"{p2_49k['cold_device_ms']} ms cold",
+        },
         {
             "name": "mpv_idct8x8",
             "route": "cuda",

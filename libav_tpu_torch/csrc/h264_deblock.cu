@@ -15,7 +15,7 @@
 // barrier between edges. Entry points:
 //
 //   h264_edge_filter_lines  K1's contract: (B, 8) int32 lines, per-line qp
-//                           and bS, one thread per line, out of place.
+//                           and bS, out of place. See below.
 //   h264_deblock_frame      the whole frame deblock in one launch, in place
 //                           on the 4-padded int32 planes: the decoder's
 //                           path. See below.
@@ -57,6 +57,24 @@
 // each an L2 round trip for the above rows, 8 barrier-separated edge
 // steps, the write-back, a fence and the publish. The wave kernel pays a
 // launch per step of that chain instead.
+//
+// h264_edge_filter_lines is bound by bytes: 32 bytes in and out per line
+// and 8 of qp and bS, 75.5 MB at 2^20 lines, 22.5 us at 3.35 TB/s. Its
+// first design gave a thread one line: eight 4-byte loads and stores 32
+// bytes apart, so each warp instruction touched 32 sectors for 4 bytes of
+// each, and the table lookups went to global memory (44% of the bound at
+// 2^20 lines, 18% at 49,152). Now a warp takes tiles of 32 lines (1 KB):
+//   - it reads a tile as two contiguous 512-byte warp loads of 16 bytes
+//     per lane, stages it in shared memory (each 16-byte half-line in a
+//     slot swizzled so that neither the copy in nor a lane's two 16-byte
+//     reads of its own line meets a bank conflict), filters one line per
+//     lane with filter_line, and writes the tile back the same way;
+//   - the packed alpha/beta/tc0 table sits in shared memory, loaded once
+//     per block;
+//   - the grid holds 4 blocks of 8 warps per SM at most and each warp
+//     walks its tiles grid-stride, loading the next tile before it
+//     filters the current one, so loads stay in flight at 2^20 lines.
+// The last tile may be partial; the lines must be 16-byte aligned.
 //
 // A third entry point, h264_edge_filter_pm, is kernel P2: the luma filter
 // in the position-major layout, (8, B) int32, row k holding pixel slot k
@@ -133,20 +151,90 @@ __device__ __forceinline__ void filter_line(int* px, int step, int qp,
   }
 }
 
-__global__ void edge_filter_lines_kernel(const int* __restrict__ lines,
-                                         int* __restrict__ out,
-                                         const int* __restrict__ qp,
-                                         const int* __restrict__ bs, int n,
-                                         int a_off, int b_off, int chroma,
-                                         const int* __restrict__ tab) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int v[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) v[k] = lines[8 * i + k];
-  filter_line(v + 4, 1, qp[i], bs[i], a_off, b_off, chroma != 0, tab);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) out[8 * i + k] = v[k];
+constexpr int kLineWarps = 8;
+constexpr int kLineThreads = 32 * kLineWarps;
+constexpr int kTabInts = 5 * kNQp;      // ALPHA | BETA | TC0 (52 x 3)
+
+// One tile of 32 lines as a lane holds it before staging: 16-byte chunks
+// lane and 32 + lane of the tile, and the qp and bS of line `lane`.
+struct LineTile {
+  int4 a, b;
+  int qp, bs;
+};
+
+// 16-byte chunk c (0..63) of a tile, half c & 1 of line c >> 1, goes to
+// slot (c & ~1) | ((c & 1) ^ ((c >> 3) & 1)) in shared memory: eight
+// lanes copying eight neighbouring chunks hit eight slots in a row, and
+// lanes 8k..8k+7 reading the same half of their own lines hit slots whose
+// banks are all different.
+__device__ __forceinline__ int chunk_slot(int c) {
+  return (c & ~1) | ((c & 1) ^ ((c >> 3) & 1));
+}
+
+// lines of the tile that starts at line `first`
+__device__ __forceinline__ int tile_lines(int n, long first) {
+  return n - first < 32 ? static_cast<int>(n - first) : 32;
+}
+
+__device__ __forceinline__ void load_tile(LineTile& t, long tile, int n,
+                                          const int* __restrict__ lines,
+                                          const int* __restrict__ qp,
+                                          const int* __restrict__ bs,
+                                          int lane) {
+  const long first = 32 * tile;               // first line of the tile
+  const int nl = tile_lines(n, first);
+  const int4* src = reinterpret_cast<const int4*>(lines) + 2 * first;
+  if ((lane >> 1) < nl) t.a = src[lane];
+  if (((32 + lane) >> 1) < nl) t.b = src[32 + lane];
+  if (lane < nl) {
+    t.qp = qp[first + lane];
+    t.bs = bs[first + lane];
+  }
+}
+
+__global__ void __launch_bounds__(kLineThreads)
+    edge_filter_lines_kernel(const int* __restrict__ lines,
+                             int* __restrict__ out,
+                             const int* __restrict__ qp,
+                             const int* __restrict__ bs, int n, int a_off,
+                             int b_off, int chroma,
+                             const int* __restrict__ tab) {
+  __shared__ int stab[kTabInts];
+  __shared__ int4 stage[kLineWarps][64];
+  const int lane = threadIdx.x & 31;
+  const int wib = threadIdx.x >> 5;
+  const long tiles = (n + 31) / 32;
+  const long stride = static_cast<long>(gridDim.x) * kLineWarps;
+  long t = static_cast<long>(blockIdx.x) * kLineWarps + wib;
+  LineTile cur = {}, nxt = {};
+  if (t < tiles) load_tile(cur, t, n, lines, qp, bs, lane);
+  for (int i = threadIdx.x; i < kTabInts; i += kLineThreads) stab[i] = tab[i];
+  __syncthreads();
+  int4* st = stage[wib];
+  for (; t < tiles; t += stride) {
+    if (t + stride < tiles) load_tile(nxt, t + stride, n, lines, qp, bs, lane);
+    const long first = 32 * t;
+    const int nl = tile_lines(n, first);
+    if ((lane >> 1) < nl) st[chunk_slot(lane)] = cur.a;
+    if (((32 + lane) >> 1) < nl) st[chunk_slot(32 + lane)] = cur.b;
+    __syncwarp();
+    if (lane < nl) {
+      const int4 lo = st[chunk_slot(2 * lane)];
+      const int4 hi = st[chunk_slot(2 * lane + 1)];
+      int v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      filter_line(v + 4, 1, cur.qp, cur.bs, a_off, b_off, chroma != 0,
+                  stab);
+      // only this lane reads or writes its line's two slots
+      st[chunk_slot(2 * lane)] = make_int4(v[0], v[1], v[2], v[3]);
+      st[chunk_slot(2 * lane + 1)] = make_int4(v[4], v[5], v[6], v[7]);
+    }
+    __syncwarp();
+    int4* dst = reinterpret_cast<int4*>(out) + 2 * first;
+    if ((lane >> 1) < nl) dst[lane] = st[chunk_slot(lane)];
+    if (((32 + lane) >> 1) < nl) dst[32 + lane] = st[chunk_slot(32 + lane)];
+    __syncwarp();
+    cur = nxt;
+  }
 }
 
 __global__ void edge_filter_pm_kernel(const int* __restrict__ xT,
@@ -453,11 +541,19 @@ extern "C" {
 
 // Each returns cudaGetLastError() after its launch (0 = launched).
 
+// lines and out: (n, 8) int32, 16-byte aligned; n >= 1.
 int h264_edge_filter_lines(const int* lines, int* out, const int* qp,
                            const int* bs, int n, int a_off, int b_off,
                            int chroma, const int* tab, cudaStream_t stream) {
-  const int threads = 256;
-  edge_filter_lines_kernel<<<(n + threads - 1) / threads, threads, 0,
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long tiles = (static_cast<long>(n) + 31) / 32;
+  const long want = (tiles + kLineWarps - 1) / kLineWarps;
+  const long blocks = want < 4L * sms ? want : 4L * sms;
+  edge_filter_lines_kernel<<<static_cast<unsigned>(blocks), kLineThreads, 0,
                              stream>>>(lines, out, qp, bs, n, a_off, b_off,
                                        chroma, tab);
   return static_cast<int>(cudaGetLastError());

@@ -5,8 +5,10 @@ deblock_frame_exact_jit; spec ISO 14496-10 §8.7).
 Kernel K1, the edge filter, is `csrc/h264_deblock.cu`, with three entry
 points:
 
-- `h264_edge_filter_lines`: K1's own contract, one thread per (B, 8)
-  line [p3 p2 p1 p0 q0 q1 q2 q3] with a per-line qp and bS.
+- `h264_edge_filter_lines`: K1's own contract, (B, 8) lines [p3 p2 p1
+  p0 q0 q1 q2 q3] with a per-line qp and bS. A warp takes tiles of 32
+  lines, read and written as contiguous 16-byte loads and stores staged
+  through shared memory, with the alpha/beta/tc0 table in shared memory.
 - `h264_deblock_frame`: what the frame deblock calls, once per frame. A
   persistent wavefront: one-warp blocks take macroblock rows from an
   atomic ticket, walk them left to right, and wait on the row above
@@ -165,6 +167,10 @@ def h264_edge_filter_lines(lines: torch.Tensor, qp: torch.Tensor,
     check_int32("lines", lines, dev, (n, 8))
     check_int32("qp", qp, dev, (n,))
     check_int32("bs", bs, dev, (n,))
+    if lines.data_ptr() % 16:
+        raise ValueError("h264_edge_filter_lines: lines must start on a "
+                         "16-byte boundary (the kernel reads 16-byte "
+                         "half-lines)")
     out = torch.empty_like(lines)
     if n == 0:
         return out

@@ -4,20 +4,23 @@
 pack, filter construction utils.c initFilter, yuv2rgb.c table codegen).
 
 The JAX package's host code, copied; its device programs are the
-port's, on the device the frame's planes lie on (a decoder's frames
-stay on its device):
+port's. A context has a device, "cuda" unless the caller names another
+(`device="cpu"` is the only way to run on the CPU); a frame's tensor
+planes stay on their own device (a decoder's frames stay on its
+device), its numpy planes are uploaded to the context's:
   - plane scaling (`-s`): the bit-exact integer scaler
     (`bitexact.PlaneScaler`), a torch program;
   - YUV -> RGB: kernel `sws_yuv2rgb` on the card, its plain version on
     the CPU (`yuv2rgb.py`), byte-equal to the JAX program;
   - RGB -> YUV: a torch program with XLA's rounding steps written out;
   - RGB -> RGB reorders and the pack/unpack layer (`packing.py`) run on
-    the host, as in the JAX package.
+    the host, as in the JAX package; an RGB resize runs on the
+    context's device.
 Filters are built like initFilter: bilinear / bicubic / area / Lanczos
 by flag, normalized to sum 1.
 
-A SwsContext is cached per (src, dst, fmt, flags) — the analogue of
-sws_getContext (swscale.h:176).
+A SwsContext is cached per (src, dst, fmt, flags, device) — the
+analogue of sws_getContext (swscale.h:176).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from libav_tpu_torch.avutil import hwdevice
 from libav_tpu_torch.avutil.error import AVError, EINVAL
 from libav_tpu_torch.avutil.frame import Frame
 from libav_tpu_torch.avutil.pixfmt import pixdesc, plane_dims
@@ -136,17 +140,19 @@ class SwsContext:
     _cache: Dict[tuple, "SwsContext"] = {}
 
     def __init__(self, src_w, src_h, src_fmt, dst_w, dst_h, dst_fmt,
-                 flags=BICUBIC):
+                 flags=BICUBIC, device="cuda"):
         self.src = (src_w, src_h, src_fmt)
         self.dst = (dst_w, dst_h, dst_fmt)
         self.flags = flags
+        self.device = hwdevice.device(device)
 
     @classmethod
     def get(cls, src_w, src_h, src_fmt, dst_w, dst_h, dst_fmt,
-            flags=BICUBIC) -> "SwsContext":
-        key = (src_w, src_h, src_fmt, dst_w, dst_h, dst_fmt, flags)
+            flags=BICUBIC, device="cuda") -> "SwsContext":
+        dev = hwdevice.device(device)
+        key = (src_w, src_h, src_fmt, dst_w, dst_h, dst_fmt, flags, dev)
         if key not in cls._cache:
-            cls._cache[key] = cls(*key[:-1], flags=key[-1])
+            cls._cache[key] = cls(*key[:6], flags=flags, device=dev)
         return cls._cache[key]
 
     # ------------------------------------------------------------------ #
@@ -158,7 +164,7 @@ class SwsContext:
         # pack/unpack layer: normalize non-canonical formats
         # (nv12/yuyv/gbrp/high-depth/...) to 8-bit planar/rgb24 first
         from libav_tpu_torch.swscale import packing as PK
-        dev = _device_of(frame.planes)
+        dev = _device_of(frame.planes, self.device)
         planes = [torch.as_tensor(p, device=dev) for p in frame.planes]
         if not PK.is_canonical(src_fmt):
             src_fmt, planes = PK.unpack(_host(planes), src_fmt, src_w,
@@ -284,10 +290,11 @@ class SwsContext:
             aidx = [i for i in range(4) if i not in so][0]
             alpha = px[:, :, aidx]
         if (src_w, src_h) != (dst_w, dst_h):
-            fn = self._plane_scaler(src_h, src_w, dst_h, dst_w, "cpu")
+            fn = self._plane_scaler(src_h, src_w, dst_h, dst_w, self.device)
 
             def scale(a):
-                return fn(torch.from_numpy(np.ascontiguousarray(a))).numpy()
+                return fn(torch.as_tensor(np.ascontiguousarray(a),
+                                          device=self.device)).cpu().numpy()
             rgb = np.stack([scale(rgb[:, :, c]) for c in range(3)], axis=-1)
             alpha = scale(alpha) if alpha is not None else None
         out = np.full((dst_h, dst_w, dstep), 255, np.uint8)
@@ -299,12 +306,13 @@ class SwsContext:
         return [np.ascontiguousarray(out.reshape(dst_h, -1))]
 
 
-def _device_of(planes) -> torch.device:
-    """The device of the frame's tensor planes (the CPU for numpy ones)."""
+def _device_of(planes, default: torch.device) -> torch.device:
+    """The device of the frame's tensor planes, `default` for numpy
+    ones."""
     for p in planes:
         if isinstance(p, torch.Tensor):
             return p.device
-    return torch.device("cpu")
+    return default
 
 
 def _host(planes):

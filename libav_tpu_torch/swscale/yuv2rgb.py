@@ -6,20 +6,33 @@ The JAX package runs this as one XLA-fused float32 elementwise program,
 and its bytes are the bar. Kernel `sws_yuv2rgb` (`csrc/sws_yuv2rgb.cu`)
 is one launch per frame on the card; `yuv2rgb_plain` is its PyTorch
 twin. Both follow the rounding steps of XLA's CPU code for that program,
-which contracts some multiply-adds into FMAs (read from its object code
-and checked on its outputs at 1920x1080; see the CUDA source):
+which contracts some multiply-adds into FMAs. With ys = y - oy, uc = u -
+128, vc = v - 128 (all exact) and every product or sum outside an fma
+rounded to float32:
 
-    ys = y - oy, uc = u - 128, vc = v - 128      (exact)
     rb_form 0:  r = fma(ys, ky, kru*vc)          b = fma(ys, ky, kbv*uc)
     rb_form 1:  r = fma(kru, vc, ys*ky)          b = fma(kbv, uc, ys*ky)
     g_form 0:   g = fma(ys, ky, kgu*uc) + kgv*vc
     g_form 1:   g = fma(kgv, vc, fma(kgu, uc, ys*ky))
+    g_form 2:   g = fma(kgv, vc, fma(ys, ky, kgu*uc))
 
-then round half to even and clip to [0, 255]. Limited range takes
-rb_form 0, full range rb_form 1; g_form is 1 for full-range 4:4:4 only.
-XLA chooses its contractions per shape, so at some other sizes its
-output differs from these forms in a few hundred bytes per frame
-(ROADMAP.md §3 records the counts).
+then round half to even and clip to [0, 255]. In full range ky is 1, so
+rb_form 0 is the unfused ys + kbv*uc there.
+
+Which form XLA takes depends on the format, the range and the width
+(`forms`), read from its object code (jax 0.9.0, XLA_FLAGS=
+--xla_dump_to): the fusion writes r, g and b in three loops over the
+pixels of a row, and LLVM unrolls the r and b loops by the largest of 3,
+2 and 1 that divides the width, the g loop by 2 or 1. With horizontally
+subsampled chroma an even unroll puts two pixels of one chroma sample in
+one iteration: the code generator merges their chroma products, a
+product with two uses is not contracted, and the luma product is fused
+instead (forms 0). Otherwise the first product of each add is fused
+(rb_form 1; g_form 1 in full range, where XLA's ys*ky is no product at
+all, and 2 in limited range). Checked on XLA's outputs, 0 differing
+bytes, at 1920x1080, 1920x1088, 1280x720, 640x480, 241x135, 135x241,
+53x37, 37x53, 71x97, 97x71 and widths 33-35, 44, 50, 62, 66, 176, 854,
+960, 1000 and 1366, for 4:2:0, 4:2:2 and 4:4:4 in both ranges.
 
 The wrapper `yuv2rgb` runs the plain version for planes on the CPU,
 launches the kernel for planes on a CUDA device, and raises for anything
@@ -56,9 +69,17 @@ def constants(full_range: bool) -> Tuple[float, ...]:
     return tuple(float(np.float32(x)) for x in k)
 
 
-def forms(sub_w: int, sub_h: int, full_range: bool) -> Tuple[int, int]:
-    """(rb_form, g_form) of XLA's rounding for this format and range."""
-    return int(full_range), int(full_range and not sub_w and not sub_h)
+def forms(sub_w: int, sub_h: int, full_range: bool,
+          shape: Tuple[int, int]) -> Tuple[int, int]:
+    """(rb_form, g_form) of XLA's rounding for this format, range and
+    (H, W) shape; only the width and the horizontal subsampling count
+    (see the module's note)."""
+    w = shape[1]
+    rb_unroll = 3 if w % 3 == 0 else (2 if w % 2 == 0 else 1)
+    rb_shared = sub_w and rb_unroll % 2 == 0
+    g_shared = sub_w and w % 2 == 0
+    return (0 if rb_shared else 1,
+            0 if g_shared else (1 if full_range else 2))
 
 
 def fma(a: torch.Tensor, b: float, c) -> torch.Tensor:
@@ -79,7 +100,7 @@ def yuv2rgb_plain(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     2^sub_w)) -> uint8 (H, 3W) rgb24, or bgr24 when bgr."""
     h, w = y.shape
     ky, oy, kru, kgu, kgv, kbv = constants(full_range)
-    rb_form, g_form = forms(sub_w, sub_h, full_range)
+    rb_form, g_form = forms(sub_w, sub_h, full_range, (h, w))
     rows = torch.arange(h, device=y.device) >> sub_h
     cols = torch.arange(w, device=y.device) >> sub_w
     ys = y.float() - oy
@@ -94,8 +115,10 @@ def yuv2rgb_plain(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
         b = fma(uc, kbv, yf)
     if g_form == 0:
         g = fma(ys, ky, kgu * uc) + kgv * vc
-    else:
+    elif g_form == 1:
         g = fma(vc, kgv, fma(uc, kgu, yf))
+    else:
+        g = fma(vc, kgv, fma(ys, ky, kgu * uc))
     chans = (b, g, r) if bgr else (r, g, b)
     rgb = torch.stack(chans, dim=-1).round().clamp(0, 255)
     return rgb.to(torch.uint8).reshape(h, 3 * w)
@@ -132,8 +155,8 @@ def yuv2rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     out = torch.empty((h, 3 * w), dtype=torch.uint8, device=dev)
     if h == 0 or w == 0:
         return out
-    consts = _Consts(*constants(full_range), *forms(sub_w, sub_h,
-                                                    full_range))
+    consts = _Consts(*constants(full_range),
+                     *forms(sub_w, sub_h, full_range, (h, w)))
     with torch.cuda.device(dev):
         err = library().sws_yuv2rgb(
             ptr(y), ptr(u), ptr(v), ptr(out), w, h, y.stride(0),

@@ -26,7 +26,7 @@ are the port's (H.264 with kernel K1; MPEG-1/2, MPEG-4 part 2 from .m4v
 or AVI FMP4/XVID/DIVX, and MJPEG with kernel K2) on that one device, and so are the audio decoders (AAC with its IMDCT
 on the device; AC-3/E-AC-3 and PCM on the host) and rawvideo (planes
 uploaded to the device). `-s` and `-pix_fmt` run the port's swscale on
-the frames' device (YUV -> RGB through kernel `sws_yuv2rgb` on the
+the CLI's device (YUV -> RGB through kernel `sws_yuv2rgb` on the
 card); `-ar`, `-ac` and `-sample_fmt` run the port's avresample on the
 host. The encoders are the host ones, rawvideo and PCM,
 and the MPEG-4 part 2 encoder (`-c:v mpeg4` with `-q:v`, `-g`, `-bf`
@@ -747,7 +747,8 @@ class _VideoChain:
                    }.get(getattr(spec, "sws_flags", None) or "bicubic",
                          _sw.BICUBIC)
             sws = SwsContext.get(frame.width, frame.height, frame.format,
-                                 w, h, dst_fmt, flags=flg)
+                                 w, h, dst_fmt, flags=flg,
+                                 device=self.o.device)
             frame = sws.scale_frame(frame)
         return frame
 

@@ -120,17 +120,34 @@ _needs_cuda = [pytest.mark.cuda,
 class TestKernelsOnCard:
     pytestmark = _needs_cuda
 
+    @pytest.mark.parametrize("B", [1, 31, 33, 127, 4097, 49152, 100000,
+                                   1 << 20])
     @pytest.mark.parametrize("chroma", [False, True])
     @pytest.mark.parametrize("offs", [(0, 0), (4, -2), (-6, 6)])
-    def test_edge_filter_lines(self, chroma, offs):
+    def test_edge_filter_lines(self, chroma, offs, B):
+        """K1's line kernel: whole and partial 32-line tiles, one tile to
+        several per warp; one launch per call; equal to filter_edge_qp,
+        and for luma without offsets to P2 on the transposed lines."""
         dev = torch.device("cuda", 0)
-        lines, qp, bs = (_t(a).to(dev) for a in edge_lines(80, B=100000))
+        lines, qp, bs = (_t(a).to(dev) for a in edge_lines(80 + B, B=B))
         before = tdb.h264_edge_filter_lines.launches
         got = tdb.h264_edge_filter_lines(lines, qp, bs, chroma, *offs)
         torch.cuda.synchronize()
         assert tdb.h264_edge_filter_lines.launches == before + 1
         assert torch.equal(got, tdb.filter_edge_qp(lines, qp, bs, chroma,
                                                    *offs))
+        if not chroma and offs == (0, 0):
+            pm = tdb.h264_edge_filter_pm(lines.T.contiguous(), qp, bs)
+            assert torch.equal(got, pm.T)
+
+    def test_edge_filter_lines_needs_16_byte_rows(self):
+        dev = torch.device("cuda", 0)
+        buf = torch.zeros(64 * 8 + 1, dtype=torch.int32, device=dev)
+        lines = buf[1:].view(64, 8)
+        assert lines.is_contiguous() and lines.data_ptr() % 16
+        v = torch.zeros(64, dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="16-byte"):
+            tdb.h264_edge_filter_lines(lines, v, v)
 
     @pytest.mark.parametrize("part,any_t8,a_off,b_off,cqpo", DEBLOCK_CASES)
     def test_deblock_wave(self, part, any_t8, a_off, b_off, cqpo):
@@ -313,7 +330,8 @@ class TestKernelsOnCard:
     @pytest.mark.parametrize("sub", [(1, 1), (1, 0), (0, 0)])
     @pytest.mark.parametrize("full", [False, True])
     @pytest.mark.parametrize("bgr", [False, True])
-    @pytest.mark.parametrize("hw", [(1080, 1920), (37, 53)])
+    @pytest.mark.parametrize("hw", [(1080, 1920), (720, 1280), (480, 640),
+                                    (37, 53), (33, 1934)])
     def test_sws_yuv2rgb(self, sub, full, bgr, hw):
         """sws_yuv2rgb against its plain version, byte for byte, one
         launch per call."""
@@ -331,16 +349,44 @@ class TestKernelsOnCard:
         want = sws_yuv2rgb.yuv2rgb_plain(y, u, v, sw, sh, full, bgr)
         assert got.shape == (h, 3 * w) and torch.equal(got, want)
 
-    def test_sws_yuv2rgb_strided_planes(self):
-        """Cropped views (row stride > width) need no copy."""
+    @pytest.mark.parametrize("sub", [(2, 2), (2, 0), (0, 1)])
+    @pytest.mark.parametrize("hw", [(720, 1280), (35, 70)])
+    def test_sws_yuv2rgb_other_subsampling(self, sub, hw):
+        """4:1:0, 4:1:1 and 4:4:0 (four pixels per chroma sample, two
+        rows per thread)."""
         dev = torch.device("cuda", 0)
-        rng = np.random.default_rng(95)
+        (sw, sh), (h, w) = sub, hw
+        rng = np.random.default_rng(97 + w)
+        y = _t(rng.integers(0, 256, (h, w), dtype=np.uint8)).to(dev)
+        cshape = (-(-h >> sh), -(-w >> sw))
+        u, v = (_t(rng.integers(0, 256, cshape, dtype=np.uint8)).to(dev)
+                for _ in range(2))
+        for full in (False, True):
+            got = sws_yuv2rgb.yuv2rgb(y, u, v, sw, sh, full, True)
+            want = sws_yuv2rgb.yuv2rgb_plain(y, u, v, sw, sh, full, True)
+            assert torch.equal(got, want)
+
+    @pytest.mark.parametrize("pitch,crop", [
+        ((96, 48), (0, 0, 50, 70)), ((96, 48), (3, 16, 64, 64)),
+        ((100, 50), (3, 16, 64, 64)), ((83, 41), (3, 16, 64, 64))])
+    @pytest.mark.parametrize("sh", [1, 0])
+    def test_sws_yuv2rgb_strided_planes(self, pitch, crop, sh):
+        """Cropped views (row stride > width) need no copy: row strides a
+        multiple of 16 or not (then some rows are 16-byte aligned and some
+        not, and each lane picks its path), 4:2:0 and 4:2:2."""
+        dev = torch.device("cuda", 0)
+        rng = np.random.default_rng(pitch[0] + crop[0])
+        (yp, cp), (r0, c0, h, w) = pitch, crop
         big = [_t(rng.integers(0, 256, s, dtype=np.uint8)).to(dev)
-               for s in ((64, 96), (32, 48), (32, 48))]
-        y, u, v = big[0][:50, :70], big[1][:25, :35], big[2][:25, :35]
-        got = sws_yuv2rgb.yuv2rgb(y, u, v, 1, 1, False)
+               for s in ((70, yp), (70 >> sh, cp), (70 >> sh, cp))]
+        y = big[0][r0:r0 + h, c0:c0 + w]
+        u, v = (b[r0 >> sh:(r0 >> sh) + (-(-h >> sh)),
+                  c0 >> 1:(c0 >> 1) + (-(-w >> 1))] for b in big[1:])
+        before = sws_yuv2rgb.yuv2rgb.launches
+        got = sws_yuv2rgb.yuv2rgb(y, u, v, 1, sh, False)
+        assert sws_yuv2rgb.yuv2rgb.launches == before + 1
         want = sws_yuv2rgb.yuv2rgb_plain(y.contiguous(), u.contiguous(),
-                                         v.contiguous(), 1, 1, False)
+                                         v.contiguous(), 1, sh, False)
         assert torch.equal(got, want)
 
     def test_imdct_on_card(self):

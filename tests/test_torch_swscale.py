@@ -51,7 +51,8 @@ def _planes(seed, h, w, sw, sh):
 @pytest.mark.parametrize("out_fmt", ["rgb24", "bgr24"])
 @pytest.mark.parametrize("full", [False, True])
 @pytest.mark.parametrize("sub", list(SUBSAMPLING))
-@pytest.mark.parametrize("hw", [(1080, 1920), (37, 53), (97, 71)])
+@pytest.mark.parametrize("hw", [(1080, 1920), (720, 1280), (480, 640),
+                                (37, 53), (97, 71)])
 def test_yuv2rgb_matches_xla(hw, sub, full, out_fmt):
     """SwsContext._yuv_to_rgb of both packages on the same planes: 0
     differing bytes."""
@@ -60,7 +61,8 @@ def test_yuv2rgb_matches_xla(hw, sub, full, out_fmt):
     planes = _planes(h + 7 * sw + 3 * sh, h, w, sw, sh)
     want = jsw.SwsContext(w, h, src_fmt, w, h, out_fmt)._yuv_to_rgb(
         list(planes), src_fmt, out_fmt, "tv")[0]
-    got = tsw.SwsContext(w, h, src_fmt, w, h, out_fmt)._yuv_to_rgb(
+    got = tsw.SwsContext(w, h, src_fmt, w, h, out_fmt,
+                         device="cpu")._yuv_to_rgb(
         [torch.from_numpy(p) for p in planes], src_fmt, out_fmt, "tv")[0]
     assert got.dtype == torch.uint8 and got.shape == (h, 3 * w)
     np.testing.assert_array_equal(got.numpy(), want)
@@ -98,7 +100,8 @@ def test_rgb_to_yuv_matches_xla(hw, dst_fmt):
     rgb = rng.integers(0, 256, (h, 3 * w), dtype=np.uint8)
     want = jsw.SwsContext(w, h, "rgb24", w, h, dst_fmt)._rgb_to_yuv(
         [rgb], "rgb24", dst_fmt)
-    got = tsw.SwsContext(w, h, "rgb24", w, h, dst_fmt)._rgb_to_yuv(
+    got = tsw.SwsContext(w, h, "rgb24", w, h, dst_fmt,
+                         device="cpu")._rgb_to_yuv(
         [torch.from_numpy(rgb)], "rgb24", dst_fmt)
     for a, b in zip(want, got):
         a, b = np.asarray(a).astype(int), b.numpy().astype(int)
@@ -132,12 +135,56 @@ def test_scale_frame_matches_jax(src_fmt, dst_fmt, size):
     want = jsw.SwsContext(w, h, src_fmt, dw, dh, dst_fmt).scale_frame(src)
     frame = Frame(width=w, height=h, format=src_fmt)
     frame.planes = [torch.from_numpy(p) for p in src.planes]
-    got = tsw.SwsContext(w, h, src_fmt, dw, dh, dst_fmt).scale_frame(frame)
+    got = tsw.SwsContext(w, h, src_fmt, dw, dh, dst_fmt,
+                         device="cpu").scale_frame(frame)
     assert (got.width, got.height, got.format, got.color_range) == \
         (want.width, want.height, want.format, want.color_range)
     assert len(got.planes) == len(want.planes)
     for a, b in zip(want.planes, got.to_host().planes):
         np.testing.assert_array_equal(b, np.asarray(a))
+
+
+@pytest.mark.parametrize("src_fmt,dst_fmt,size", [
+    ("yuv420p", "rgb24", None), ("yuvj422p", "bgr24", None),
+    ("yuv420p", "yuv420p", (40, 30)), ("rgba", "rgb24", (30, 20))])
+def test_scale_frame_numpy_planes_on_cpu(src_fmt, dst_fmt, size):
+    """A frame of numpy planes through SwsContext.get(device="cpu"): the
+    planes are uploaded to the context's device (the CPU), and the output
+    equals the JAX package's scale_frame."""
+    w, h = 48, 36
+    dw, dh = size or (w, h)
+    src = JFrame.alloc_video(w, h, src_fmt)
+    rng = np.random.default_rng(len(src_fmt) + 3 * len(dst_fmt))
+    src.planes = [rng.integers(0, 256, p.shape, dtype=np.uint8)
+                  for p in src.planes]
+    want = jsw.SwsContext(w, h, src_fmt, dw, dh, dst_fmt).scale_frame(src)
+    frame = Frame(width=w, height=h, format=src_fmt)
+    frame.planes = [p.copy() for p in src.planes]
+    sws = tsw.SwsContext.get(w, h, src_fmt, dw, dh, dst_fmt, device="cpu")
+    assert sws.device == torch.device("cpu")
+    got = sws.scale_frame(frame)
+    assert (got.width, got.height, got.format) == \
+        (want.width, want.height, want.format)
+    for a, b in zip(want.planes, got.to_host().planes):
+        np.testing.assert_array_equal(b, np.asarray(a))
+
+
+def test_sws_context_defaults_to_cuda(monkeypatch):
+    """Without CUDA the default device raises; nothing runs on the CPU
+    unless the caller says device="cpu"."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = []
+    monkeypatch.setattr(tsw.SwsContext, "_yuv_to_rgb",
+                        lambda *a, **k: calls.append(a))
+    for make in (tsw.SwsContext, tsw.SwsContext.get):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make(48, 36, "yuv420p", 48, 36, "rgb24")
+    assert calls == []
+    cpu = tsw.SwsContext.get(48, 36, "yuv420p", 48, 36, "rgb24",
+                             device="cpu")
+    assert cpu.device == torch.device("cpu")
+    assert cpu is tsw.SwsContext.get(48, 36, "yuv420p", 48, 36, "rgb24",
+                                     device="cpu")
 
 
 # ---------------------------------------------------------------------- #
