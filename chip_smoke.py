@@ -335,18 +335,26 @@ def busy_text(b):
             f"{b['held']} of {b['launched']} kernel launches{low})")
 
 
-def phase_lines(dev):
+def line_inputs(dev, n=1 << 20):
+    """Phase 2's edge lines: (n, 8) int32, seed 2, every other line
+    smooth; qp 0-51 and bS 0-4 per line; all on dev."""
     import numpy as np
     import torch
-    from libav_tpu_torch.ops import h264deblock as db
     rng = np.random.default_rng(2)
-    n = 1 << 20
     lines = rng.integers(0, 256, (n, 8)).astype(np.int32)
     lines[::2] = np.clip(lines[::2, :1] +
                          rng.integers(-6, 7, (n // 2, 8)), 0, 255)
     lines = torch.as_tensor(lines).to(dev)
     qp = torch.as_tensor(rng.integers(0, 52, n).astype(np.int32)).to(dev)
     bs = torch.as_tensor(rng.integers(0, 5, n).astype(np.int32)).to(dev)
+    return lines, qp, bs
+
+
+def phase_lines(dev):
+    import torch
+    from libav_tpu_torch.ops import h264deblock as db
+    lines, qp, bs = line_inputs(dev)
+    n = lines.shape[0]
     err = 0
     changed = 0
     for chroma in (False, True):
@@ -757,8 +765,10 @@ def phase_interlace(dev):
         "prime recon identical on the card and the CPU")
 
 
-def phase_probe(dev, card):
-    """P1 and P2 through their tool, then against their plain versions."""
+def phase_probe(dev, card, k1_big):
+    """P1 and P2 through their tool, then against their plain versions;
+    P2 also at phase 2's 2^20 lines, beside K1's line kernel there
+    (`k1_big`: phase 2's result)."""
     import numpy as np
     import torch
     from libav_tpu_torch import testdata
@@ -851,6 +861,34 @@ def phase_probe(dev, card):
     log(f"phase 7 K1 lines against P2 at {kernel_probe.DEBLOCK_BATCH} "
         f"lines: {k1['device_ms'] / p2['device_ms']:.2f}x warm, "
         f"{k1['cold_device_ms'] / p2['cold_device_ms']:.2f}x cold")
+
+    # P2 at 2^20 lines: phase 2's lines transposed, beside K1's line
+    # kernel on the same lines there
+    big, qp, bs = line_inputs(dev)
+    bigT = big.T.contiguous()
+    got = db.h264_edge_filter_pm(bigT, qp, bs)
+    want = db.edge_filter_pm_plain(bigT, qp, bs)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"h264_edge_filter_pm differs from its plain "
+                             f"version at B = {big.shape[0]}")
+    del got, want, big
+
+    def p2_big():
+        return db.h264_edge_filter_pm(bigT, qp, bs)
+    warm = kernel_device_ms(p2_big, "edge_filter_pm_kernel",
+                            db.h264_edge_filter_pm, reps=50)
+    cold = kernel_device_ms(p2_big, "edge_filter_pm_kernel",
+                            db.h264_edge_filter_pm, reps=50, cold=True)
+    bound, nbytes = bound_ms(bigT, bigT, qp, bs)
+    p2 = out["l2"]["P2 2^20"] = {"device_ms": warm, "cold_device_ms": cold,
+                                 "bound_ms": bound, "bytes": nbytes}
+    log(f"phase 7 P2 at {bigT.shape[1]} lines, exact: {warm:.4f} ms on the "
+        f"device warm, {cold:.4f} cold; bound {bound:.5f} ms ({nbytes} "
+        f"bytes): {100 * bound / warm:.1f}% warm, {100 * bound / cold:.1f}% "
+        f"cold; K1 lines (phase 2) over P2 "
+        f"{k1_big['device_ms'] / warm:.2f}x warm, "
+        f"{k1_big['cold_device_ms'] / cold:.2f}x cold [{card}]")
     return out
 
 
@@ -1379,6 +1417,26 @@ def phase_config5_kernel(dev, card):
             f"{t['plain_ms']:.3f} ms [{card}]")
     log(f"phase 12 sws_yuv2rgb equal to its plain version on all "
         f"{len(frames)} decoded frames, rgb24 and bgr24")
+
+    # RGB -> YUV on the card against the CPU (whose bytes the CPU tests
+    # hold to XLA's) on frames built to split rounding orders
+    from libav_tpu_torch import swscale as tsw
+    h, w = 1080, 1920
+    for fmt in ("yuv444p", "yuvj444p", "yuv422p", "yuvj422p", "yuv420p",
+                "yuvj420p"):
+        rgb = torch.from_numpy(testdata.rgb2yuv_frame(h, w, fmt))
+        got, want = (tsw.SwsContext(w, h, "rgb24", w, h, fmt, device=d)
+                     ._rgb_to_yuv([rgb.to(d)], "rgb24", fmt)
+                     for d in (dev, "cpu"))
+        if got[0].device != dev:
+            raise AssertionError(f"rgb24 -> {fmt} left the card")
+        n = sum(int((a.cpu() != b).sum()) for a, b in zip(got, want))
+        if n:
+            raise AssertionError(f"rgb24 -> {fmt} on the card: {n} bytes "
+                                 f"differ from the CPU's")
+    log(f"phase 12 rgb24 -> yuv/yuvj 444/422/420p of the {w}x{h} "
+        f"adversarial frames (testdata.rgb2yuv_frame): the card's bytes "
+        f"equal the CPU's [{card}]")
     return r
 
 
@@ -1673,6 +1731,28 @@ def probe_record(name, source, line, what, probe, l2, library):
     }
 
 
+def p2_record(probe, k1_big):
+    """P2's kernels-line entry: phase 7's times at 49,152 and 2^20 lines,
+    K1's line kernel beside them (phase 2 at 2^20)."""
+    rec = probe_record("h264_edge_filter_pm", "h264_deblock.cu", 114,
+                       "49,152 lines as (8, B), qp 30", probe["deblock"],
+                       probe["l2"]["P2"], NO_LIBRARY["deblock"])
+    big, k1 = probe["l2"]["P2 2^20"], probe["l2"]["K1 lines"]
+    rec["lines_2_20"] = {"device_ms": big["device_ms"],
+                         "cold_device_ms": big["cold_device_ms"],
+                         "bound_ms": big["bound_ms"],
+                         "k1_lines_device_ms": k1_big["device_ms"],
+                         "k1_lines_cold_device_ms": k1_big["cold_device_ms"]}
+    rec["k1_lines_49152"] = {"device_ms": k1["device_ms"],
+                             "cold_device_ms": k1["cold_device_ms"]}
+    rec["ms_is"] += (f"; lines_2_20: phase 2's 2^20 lines transposed, "
+                     f"device ms warm and cold (bound {big['bytes']} "
+                     f"bytes), K1's line kernel on the same lines (phase "
+                     f"2); k1_lines_49152: K1's line kernel on phase 7's "
+                     f"49,152 lines")
+    return rec
+
+
 def deblock_record(name, kernel, launches, max_err, d):
     """The kernels-line entry of K1's frame or wave kernel from phase 3's
     part=True case."""
@@ -1744,7 +1824,7 @@ def main():
     k2 = phase_idct(dev)
     k2_launches, mpeg2_fps = phase_mpeg2(dev, card)
     phase_interlace(dev)
-    probe = phase_probe(dev, card)
+    probe = phase_probe(dev, card, lines)
     mjpeg_launches, mjpeg_fps = phase_mjpeg(dev, card)
     phase_cli(dev, card, {"h264_1080p_ipbb_cabac": h264_fps, **mpeg2_fps,
                           "mjpeg_1080p": mjpeg_fps})
@@ -1830,9 +1910,7 @@ def main():
         probe_record("mpv_idct8x8_cm", "mpv_idct.cu", 30,
                      "48,896 blocks as (64, B)", probe["idct"],
                      probe["l2"]["P1"], NO_LIBRARY["idct"]),
-        probe_record("h264_edge_filter_pm", "h264_deblock.cu", 114,
-                     "49,152 lines as (8, B), qp 30", probe["deblock"],
-                     probe["l2"]["P2"], NO_LIBRARY["deblock"]),
+        p2_record(probe, lines),
         {
             "name": "sws_yuv2rgb",
             "route": "cuda",

@@ -82,11 +82,37 @@
 // offsets. It replaces the timing tool's Pallas kernel
 // libav_tpu/tools/pallas_probe.py:_build_deblock, which used that layout
 // over 512 lanes (so B % 512 == 0) and looked up alpha/beta/tc0 in XLA
-// around the call. Here one thread filters one line: for each row,
-// neighbouring threads read neighbouring lines, so every load and store of
-// a warp is one 128-byte line, and the lookups run in the kernel from the
-// packed table. Any B >= 1; the last CUDA block is masked. Bound by bytes
-// (40 B in, 32 B out per line) and by the launch at the probe's sizes.
+// around the call. Bound by bytes: 40 B in and 32 B out per line, 75.5 MB
+// at 2^20 lines (22.5 us at 3.35 TB/s), 3.5 MB at 49,152 (1.06 us, about
+// what the card holds in flight in one DRAM round trip, so there the
+// launch and the round trips set the time). Its first design gave a
+// thread one line: ten 4-byte loads, then the alpha/beta and tc0 lookups
+// in global memory, two serial round trips per line. Now a block owns
+// spans of 256 lines, one line per thread, every grid-th span, with at
+// most 4 blocks per SM:
+//   - its first span comes straight into registers by coalesced 4-byte
+//     loads (for a row, a warp reads 128 contiguous bytes), sent first;
+//   - its later spans (B > 256 x 4 blocks x SMs: 135,168 lines on 132
+//     SMs) go through a ring of 4 stages in dynamic shared memory (10 KB
+//     each, asked for only by such launches, so that a launch of
+//     one-span blocks starts as light as a plain kernel): one thread
+//     arms a stage's mbarrier with its byte count
+//     and starts ten 1-D bulk copies (cp.async.bulk, no tensor map), the
+//     8 pixel rows' slices of the span, its qp and its bS, so up to four
+//     spans are in flight while one is filtered; a stage is refilled
+//     once every thread has read it (a block barrier);
+//   - the packed alpha/beta/tc0 table is copied into shared memory while
+//     those loads are in flight, so no lookup goes to global memory;
+//   - thread i filters line i and stores its 8 slots with coalesced
+//     4-byte stores.
+// Why not bulk copies for every span: on this card a span's bulk copies
+// and bulk stores took longer to come back than the same span's
+// per-thread loads, and at 49,152 lines (one span per block) that
+// latency is the time; at 2^20 lines the ring and per-thread loads both
+// reach ~80% of the bound (PERF.md §6). Bulk copies need 16-byte
+// aligned rows: B % 4 == 0 and every pointer 16-byte aligned; otherwise
+// the same launch loads every span per thread. Any B >= 1; the last span
+// may be partial.
 //
 // The alpha/beta/tc0 tables arrive as one packed int32 array
 // [ALPHA(52) | BETA(52) | TC0(52x3)] built from the JAX package's tables.
@@ -237,20 +263,176 @@ __global__ void __launch_bounds__(kLineThreads)
   }
 }
 
-__global__ void edge_filter_pm_kernel(const int* __restrict__ xT,
-                                      int* __restrict__ out,
-                                      const int* __restrict__ qp,
-                                      const int* __restrict__ bs, int n,
-                                      const int* __restrict__ tab) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long stride = n;                          // one pixel slot
+// ---------------------------------------------------------------------- //
+// P2, h264_edge_filter_pm: spans of lines through a ring of bulk copies
+// ---------------------------------------------------------------------- //
+
+constexpr int kPmSpan = 256;        // lines per span = threads per block
+constexpr int kPmStages = 4;        // ring depth in spans
+constexpr int kPmBlocksPerSm = 4;
+
+// One span as it sits in shared memory: row k holds pixel slot k of the
+// span's lines, then their qp and bS; every row is kPmSpan ints.
+struct PmStage {
+  int x[8][kPmSpan];
+  int qp[kPmSpan];
+  int bs[kPmSpan];
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Spins until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// bytes (a multiple of 16, both ends 16-byte aligned) from global to
+// shared, counted on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One line of a span in registers: its 8 pixel slots, qp and bS.
+struct PmLine {
   int v[8];
+  int qp, bs;
+};
+
+__device__ __forceinline__ void pm_load(PmLine& l, const int* xT,
+                                        const int* qp, const int* bs,
+                                        long rows, long line) {
 #pragma unroll
-  for (int k = 0; k < 8; ++k) v[k] = xT[k * stride + i];
-  filter_line(v + 4, 1, qp[i], bs[i], 0, 0, false, tab);
+  for (int k = 0; k < 8; ++k) l.v[k] = xT[k * rows + line];
+  l.qp = qp[line];
+  l.bs = bs[line];
+}
+
+__device__ __forceinline__ void pm_filter_store(PmLine& l, int* out,
+                                                long rows, long line,
+                                                const int* stab) {
+  filter_line(l.v + 4, 1, l.qp, l.bs, 0, 0, false, stab);
 #pragma unroll
-  for (int k = 0; k < 8; ++k) out[k * stride + i] = v[k];
+  for (int k = 0; k < 8; ++k) out[k * rows + line] = l.v[k];
+}
+
+// Dynamic shared memory of a launch that runs the ring: the stages on a
+// 128-byte boundary, then their barriers. A launch without it asks for
+// none, and its blocks start as light as a plain kernel's.
+constexpr int kPmRingBytes = kPmStages * (sizeof(PmStage) + 8) + 128;
+
+__global__ void __launch_bounds__(kPmSpan, kPmBlocksPerSm)
+    edge_filter_pm_kernel(const int* __restrict__ xT, int* __restrict__ out,
+                          const int* __restrict__ qp,
+                          const int* __restrict__ bs, int n, int ring_on,
+                          const int* __restrict__ tab) {
+  extern __shared__ unsigned char pm_dyn[];
+  __shared__ int stab[kTabInts];
+  PmStage* st = reinterpret_cast<PmStage*>(
+      (reinterpret_cast<unsigned long long>(pm_dyn) + 127) & ~127ull);
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(st + kPmStages);
+  const int t = threadIdx.x;
+  const long rows = n;                           // one pixel slot
+  // the first span straight into registers, before anything else: no
+  // copy engine and no index arithmetic in its path
+  PmLine l;
+  const long line0 = static_cast<long>(blockIdx.x) * kPmSpan + t;
+  const bool live = line0 < n;
+  if (live) pm_load(l, xT, qp, bs, rows, line0);
+
+  const int grid = gridDim.x;
+  const int spans = (n + kPmSpan - 1) / kPmSpan;
+  // this block's spans: blockIdx.x + j * grid, j < mine
+  const int mine = (spans - static_cast<int>(blockIdx.x) + grid - 1) / grid;
+  auto first_of = [&](int j) {
+    return static_cast<long>(blockIdx.x + j * grid) * kPmSpan;
+  };
+  auto lines_of = [&](int j) {
+    const long left = n - first_of(j);
+    return left < kPmSpan ? static_cast<int>(left) : kPmSpan;
+  };
+  // span j >= 1 sits in stage (j - 1) % kPmStages; thread 0 alone arms
+  // its barrier and starts its ten bulk copies
+  const bool ring = ring_on && mine > 1;
+  auto load = [&](int j) {
+    PmStage& s = st[(j - 1) % kPmStages];
+    unsigned long long* bar = &full[(j - 1) % kPmStages];
+    const long first = first_of(j);
+    const unsigned nb = 4u * lines_of(j);
+    mbar_expect_tx(bar, 10 * nb);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      bulk_load(s.x[k], xT + k * rows + first, nb, bar);
+    bulk_load(s.qp, qp + first, nb, bar);
+    bulk_load(s.bs, bs + first, nb, bar);
+  };
+
+  if (ring && t == 0) {
+    for (int i = 0; i < kPmStages; ++i) mbar_init(&full[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int j = 1; j <= kPmStages && j < mine; ++j) load(j);
+  }
+  for (int i = t; i < kTabInts; i += kPmSpan) stab[i] = tab[i];
+  __syncthreads();
+  if (live) pm_filter_store(l, out, rows, line0, stab);
+
+  if (!ring) {     // one span, or rows not 16-byte aligned: per thread
+    for (int j = 1; j < mine; ++j) {
+      const long line = first_of(j) + t;
+      if (line >= n) continue;
+      pm_load(l, xT, qp, bs, rows, line);
+      pm_filter_store(l, out, rows, line, stab);
+    }
+    return;
+  }
+  for (int j = 1; j < mine; ++j) {
+    PmStage& s = st[(j - 1) % kPmStages];
+    mbar_wait(&full[(j - 1) % kPmStages], ((j - 1) / kPmStages) & 1);
+    if (t < lines_of(j)) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) l.v[k] = s.x[k][t];
+      l.qp = s.qp[t];
+      l.bs = s.bs[t];
+      pm_filter_store(l, out, rows, first_of(j) + t, stab);
+    }
+    __syncthreads();     // every thread has read the stage: refill it
+    if (t == 0 && j + kPmStages < mine) load(j + kPmStages);
+  }
 }
 
 constexpr int kLumaPatch = 20;    // MB + 4 rows/cols above and left
@@ -560,12 +742,28 @@ int h264_edge_filter_lines(const int* lines, int* out, const int* qp,
 }
 
 // P2: xT and out are (8, n) int32, position-major; luma, no offsets.
+// The ring of bulk copies runs where blocks own more than one span and
+// the rows are 16-byte aligned (n % 4 == 0, every pointer 16-byte
+// aligned); otherwise the same kernel loads per thread.
 int h264_edge_filter_pm(const int* xT, int* out, const int* qp,
                         const int* bs, int n, const int* tab,
                         cudaStream_t stream) {
-  const int threads = 256;
-  edge_filter_pm_kernel<<<(n + threads - 1) / threads, threads, 0,
-                          stream>>>(xT, out, qp, bs, n, tab);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+  };
+  const long spans = (static_cast<long>(n) + kPmSpan - 1) / kPmSpan;
+  const long most = static_cast<long>(kPmBlocksPerSm) * sms;
+  const long blocks = spans < most ? spans : most;
+  const int ring = spans > blocks && n % 4 == 0 && aligned(xT) &&
+                   aligned(out) && aligned(qp) && aligned(bs);
+  edge_filter_pm_kernel<<<static_cast<unsigned>(blocks), kPmSpan,
+                          ring ? kPmRingBytes : 0, stream>>>(
+      xT, out, qp, bs, n, ring, tab);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,7 +23,10 @@ points:
 The same source holds kernel P2, `h264_edge_filter_pm`: the luma filter
 in the position-major (8, B) layout of the timing tool's Pallas kernel
 (`libav_tpu/tools/pallas_probe.py` `_build_deblock`), alpha and beta
-both at clip(qp), no offsets.
+both at clip(qp), no offsets. Blocks own spans of 256 lines, one line
+per thread: the first span by coalesced per-thread loads, later ones
+through a ring of 1-D bulk copies (cp.async.bulk) into shared memory
+where the rows are 16-byte aligned, the table in shared memory.
 
 Each has a plain PyTorch version beside it (`filter_edge_qp`,
 `deblock_frame_plain`, `deblock_wave_plain`, `edge_filter_pm_plain`). A
@@ -201,8 +204,10 @@ def edge_filter_pm_plain(xT: torch.Tensor, qp: torch.Tensor,
 def h264_edge_filter_pm(xT: torch.Tensor, qp: torch.Tensor,
                         bs: torch.Tensor) -> torch.Tensor:
     """P2 on (8, B) int32, row k = pixel slot p3..q3 of every line, with
-    per-line qp and bS (int32). CPU tensors take `edge_filter_pm_plain`;
-    CUDA tensors launch the kernel."""
+    per-line qp and bS (int32), contiguous. CPU tensors take
+    `edge_filter_pm_plain`; CUDA tensors launch the kernel (bulk copies
+    when B % 4 == 0 and the three arrays and the output start on 16-byte
+    boundaries, per-thread loads otherwise)."""
     if xT.device.type == "cpu":
         return edge_filter_pm_plain(xT, qp, bs)
     if xT.device.type != "cuda":

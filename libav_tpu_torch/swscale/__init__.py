@@ -324,17 +324,42 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def mean_order(h: int, w: int, lw: int, lh: int) -> str:
+    """How XLA's CPU code sums each 2^lh x 2^lw chroma block of an h x w
+    frame in the JAX program (jax 0.9.0): "rows", ((p00 + p01) + p10) +
+    p11, a scalar sum over the block's rows; or, at 4:2:0, "pairs",
+    (p00 + p01) + (p10 + p11), where LLVM vectorises the 2x2 reduce over
+    the block's two rows and adds the two lanes last. Read from the
+    object code at 53x37, 97x71 and 255x71 (pairs) and 129x71, 241x135,
+    1280x720 and 1920x1080 (rows): the reduce runs in a loop of its own
+    when an odd width is edge-padded, and is vectorised when the padded
+    row (w + 1 values) is a power of two of at least 128, or, with the
+    height padded too, when w < 128. Held on 147 shapes (widths 1-2199)
+    against XLA's bytes on frames built to tell the two apart. 4:2:2
+    sums two values (either order) and 4:4:4 none; other subsamplings
+    are taken as "rows" (not read)."""
+    if (lw, lh) != (1, 1) or w % 2 == 0:
+        return "rows"
+    row_pow2 = (w + 1) & w == 0
+    if h % 2:
+        return "pairs" if w < 128 or row_pow2 else "rows"
+    return "pairs" if row_pow2 and w >= 127 else "rows"
+
+
 def _rgb2yuv(rgb: torch.Tensor, h: int, w: int, full: bool, lw: int,
              lh: int):
     """uint8 (h, 3w) rgb24 -> the uint8 Y, U, V planes of the JAX
     program (BT.601, chroma averaged over 2^lh x 2^lw with edge padding),
-    on rgb's device. XLA's CPU code for that program (jax 0.9.0, checked
-    on its outputs at 1920x1080 and 1280x720) rounds like this:
+    on rgb's device. XLA's CPU code for that program (jax 0.9.0, read
+    from its object code, XLA_FLAGS=--xla_dump_to) rounds like this at
+    every shape and every place in its loops:
       t = fma(k2, b, fma(k0, r, k1*g))          per component
-      limited range: y = fma(t*219, 1/255, 16), c = fma(t*224, 1/255, 128)
-      full range:    y = t,                      c = t + 128
-    (the division by 255 is a multiplication by its float32 reciprocal),
-    and the 2x2 mean sums its four samples row by row, then divides."""
+      limited range: y = fma(t, K, 16), c = fma(t, K', 128)
+      full range:    y = t,             c = t + 128
+    where K = f32(219 * f32(1/255)) and K' = f32(224 * f32(1/255)): XLA
+    folds `x * 219 / 255` into one multiplication by a constant it
+    rounds twice. The chroma mean sums from 0 in `mean_order` and
+    multiplies by 1/4 or 1/2."""
     x = rgb.reshape(h, w, 3).float()
     r, g, b = x[..., 0], x[..., 1], x[..., 2]
 
@@ -344,11 +369,11 @@ def _rgb2yuv(rgb: torch.Tensor, h: int, w: int, full: bool, lw: int,
     y = lin3(0.299, 0.587, 0.114)
     u = lin3(-0.168736, -0.331264, 0.5)
     v = lin3(0.5, -0.418688, -0.081312)
-    inv255 = _f32(1.0 / 255.0)
     if not full:
-        y = _y2r.fma(y * 219.0, inv255, 16.0)
-        u = _y2r.fma(u * 224.0, inv255, 128.0)
-        v = _y2r.fma(v * 224.0, inv255, 128.0)
+        inv255 = _f32(1.0 / 255.0)
+        y = _y2r.fma(y, _f32(219.0 * inv255), 16.0)
+        u = _y2r.fma(u, _f32(224.0 * inv255), 128.0)
+        v = _y2r.fma(v, _f32(224.0 * inv255), 128.0)
     else:
         u = u + 128.0
         v = v + 128.0
@@ -357,14 +382,20 @@ def _rgb2yuv(rgb: torch.Tensor, h: int, w: int, full: bool, lw: int,
         ch, cw = -(-h // fh), -(-w // fw)
         rows = torch.arange(ch * fh, device=x.device).clamp(max=h - 1)
         cols = torch.arange(cw * fw, device=x.device).clamp(max=w - 1)
+        pairs = mean_order(h, w, lw, lh) == "pairs"
 
         def mean(c):
             q = c[rows][:, cols].reshape(ch, fh, cw, fw)
-            s = torch.zeros((ch, cw), dtype=torch.float32, device=x.device)
-            for i in range(fh):
-                for j in range(fw):
-                    s = s + q[:, i, :, j]
-            return s / float(fh * fw)
+            if pairs:
+                s = (q[:, 0, :, 0] + q[:, 0, :, 1]) + \
+                    (q[:, 1, :, 0] + q[:, 1, :, 1])
+            else:
+                s = torch.zeros((ch, cw), dtype=torch.float32,
+                                device=x.device)
+                for i in range(fh):
+                    for j in range(fw):
+                        s = s + q[:, i, :, j]
+            return s * (1.0 / (fh * fw))
         u, v = mean(u), mean(v)
 
     def cl(t):

@@ -86,8 +86,9 @@ def fma(a: torch.Tensor, b: float, c) -> torch.Tensor:
     """float32 a*b+c with one rounding (c a float32 tensor or a float32
     value): the product of two float32 values is exact in float64, then
     one float64 add, then a cast to float32. That rounds twice where a
-    true FMA rounds once, and so could split a tie in principle; the
-    outputs here hold against XLA's all the same."""
+    true FMA rounds once, but on every input of every step of this
+    module's and `_rgb2yuv`'s rules (2^24 each) it equals a correctly
+    rounded FMA (tests/test_torch_swscale.py)."""
     if isinstance(c, torch.Tensor):
         c = c.double()
     return (a.double() * float(b) + c).float()

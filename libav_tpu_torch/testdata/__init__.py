@@ -284,6 +284,38 @@ def idct_blocks(seed, B):
     return x.astype(np.int32)
 
 
+RGB2YUV_SAMPLES = os.path.join(HERE, "rgb2yuv_samples.json")
+# chroma block (rows, columns) by subsampling
+_CHROMA_BLOCK = {"444": (1, 1), "422": (1, 2), "420": (2, 2)}
+
+
+def rgb2yuv_units(fmt: str) -> np.ndarray:
+    """uint8 (n, rows, cols, 3): the RGB blocks, one per chroma sample of
+    fmt (yuv/yuvj 444/422/420p), on which the port's RGB -> YUV rounding
+    and another plausible order of the same float32 arithmetic give
+    different bytes (tools/gen_rgb2yuv_samples.py)."""
+    sub = fmt[-4:-1]
+    with open(RGB2YUV_SAMPLES) as f:
+        units = json.load(f)["samples"][
+            "full" if fmt.startswith("yuvj") else "limited"][sub]
+    fh, fw = _CHROMA_BLOCK[sub]
+    return np.array([u["rgb"] for u in units], np.uint8).reshape(
+        -1, fh, fw, 3)
+
+
+def rgb2yuv_frame(h: int, w: int, fmt: str) -> np.ndarray:
+    """uint8 (h, 3w) rgb24 frame of `rgb2yuv_units(fmt)`: chroma block
+    (i, j) holds unit (i + j) mod n, so with n chroma rows or more every
+    unit meets every chroma column (and so every place in a vectorised
+    or unrolled loop)."""
+    units = rgb2yuv_units(fmt)
+    n, fh, fw, _ = units.shape
+    ch, cw = -(-h // fh), -(-w // fw)
+    pick = (np.arange(ch)[:, None] + np.arange(cw)[None, :]) % n
+    img = units[pick].transpose(0, 2, 1, 3, 4).reshape(ch * fh, cw * fw, 3)
+    return np.ascontiguousarray(img[:h, :w].reshape(h, 3 * w))
+
+
 def padded_planes(rng, H: int, W: int):
     """Random edge-padded (y, u, v) uint8 planes of an H x W picture."""
     return tuple(rng.integers(0, 256, (h + 2 * EDGE, w + 2 * EDGE))

@@ -314,9 +314,14 @@ class TestKernelsOnCard:
                    zip(planes["cuda"], planes["cpu"]))
         assert len(planes["cuda"]) == 3 * n and launches == n
 
-    @pytest.mark.parametrize("B", [1, 127, 128, 513, 49152])
+    @pytest.mark.parametrize("B", [1, 3, 127, 128, 255, 257, 513, 49152,
+                                   200000, (1 << 20) - 4, 1 << 20,
+                                   (1 << 20) + 3])
     def test_edge_filter_pm(self, B):
-        """P2, qp 0-51 and bS 0-4."""
+        """P2, qp 0-51 and bS 0-4: blocks of one span (B <= 135,168 on
+        132 SMs) and blocks whose later spans come through the bulk-copy
+        ring (B % 4 == 0) or per-thread loads, partial last spans; one
+        launch."""
         dev = torch.device("cuda", 0)
         lines, qp, bs = (_t(a).to(dev) for a in edge_lines(84 + B, B=B))
         xT = lines.T.contiguous()
@@ -326,6 +331,62 @@ class TestKernelsOnCard:
         assert tdb.h264_edge_filter_pm.launches == before + 1
         assert torch.equal(got, tdb.edge_filter_pm_plain(xT, qp, bs))
         assert torch.equal(got.T, tdb.h264_edge_filter_lines(lines, qp, bs))
+
+    @pytest.mark.parametrize("view", ["narrowed", "offset", "offset_qp"])
+    @pytest.mark.parametrize("B", [128, 1000, 49152])
+    def test_edge_filter_pm_misaligned(self, view, B):
+        """P2 on rows that are not 16-byte aligned: a narrow of an (8,
+        B + 1) array made contiguous, the (8, B) array and its qp one
+        int32 into their buffers (the per-thread path); one launch."""
+        dev = torch.device("cuda", 0)
+        lines, qp, bs = (_t(a).to(dev) for a in edge_lines(41 + B, B=B))
+        xT = lines.T.contiguous()
+        if view == "narrowed":
+            wide = torch.cat([xT, xT[:, :1]], dim=1)
+            xT = wide.narrow(1, 0, B).contiguous()
+        else:
+            buf = torch.empty(8 * B + 1, dtype=torch.int32, device=dev)
+            buf[1:] = xT.reshape(-1)
+            xT = buf[1:].view(8, B)
+            assert xT.is_contiguous() and xT.data_ptr() % 16 == 4
+            if view == "offset_qp":
+                qbuf = torch.empty(B + 1, dtype=torch.int32, device=dev)
+                qbuf[1:] = qp
+                qp = qbuf[1:]
+        before = tdb.h264_edge_filter_pm.launches
+        got = tdb.h264_edge_filter_pm(xT, qp, bs)
+        torch.cuda.synchronize()
+        assert tdb.h264_edge_filter_pm.launches == before + 1
+        assert torch.equal(got, tdb.edge_filter_pm_plain(xT, qp, bs))
+
+    def test_edge_filter_pm_refuses_strided(self):
+        """A strided (8, B) view is refused, not copied."""
+        dev = torch.device("cuda", 0)
+        lines, qp, bs = (_t(a).to(dev) for a in edge_lines(5, B=257))
+        wide = lines.T.contiguous()
+        before = tdb.h264_edge_filter_pm.launches
+        with pytest.raises(ValueError):
+            tdb.h264_edge_filter_pm(wide.narrow(1, 0, 256), qp[:256],
+                                    bs[:256])
+        assert tdb.h264_edge_filter_pm.launches == before
+
+    @pytest.mark.parametrize("fmt", ["yuv444p", "yuvj444p", "yuv422p",
+                                     "yuvj422p", "yuv420p", "yuvj420p"])
+    @pytest.mark.parametrize("hw", [(1080, 1920), (37, 53), (71, 255)])
+    def test_rgb_to_yuv_on_card(self, fmt, hw):
+        """SwsContext's RGB -> YUV on the card gives the CPU's bytes (held
+        to XLA's in test_torch_swscale.py) on testdata.rgb2yuv_frame."""
+        from libav_tpu_torch import swscale as tsw
+        h, w = hw
+        rgb = torch.from_numpy(testdata.rgb2yuv_frame(h, w, fmt))
+        planes = {}
+        for dev in ("cpu", "cuda"):
+            ctx = tsw.SwsContext(w, h, "rgb24", w, h, fmt, device=dev)
+            out = ctx._rgb_to_yuv([rgb.to(dev)], "rgb24", fmt)
+            assert all(p.device.type == dev for p in out)
+            planes[dev] = [p.cpu() for p in out]
+        assert all(torch.equal(a, b) for a, b in
+                   zip(planes["cuda"], planes["cpu"]))
 
     @pytest.mark.parametrize("sub", [(1, 1), (1, 0), (0, 0)])
     @pytest.mark.parametrize("full", [False, True])

@@ -5,13 +5,16 @@ frames through `SwsContext.scale_frame`, the yuv4mpeg container and the
 rawvideo decoder, and the port's avconv `-pix_fmt`/`-s` against the JAX
 CLI. The same numpy inputs, made from a seed, go to both packages.
 
-Every comparison is exact but one: RGB -> 4:2:2 limited range, where
-XLA's CPU code rounds a few chroma samples of a 1080-line frame another
-way than the forms the port writes out (ROADMAP.md §3); there each
-sample is within 1 and at most 1 in 100,000 differ.
+Every comparison is exact. RGB -> YUV is also held on adversarial
+frames (`testdata.rgb2yuv_frame`): blocks on which the port's rounding
+steps and another order of the same float32 arithmetic give different
+bytes, found by `tools/gen_rgb2yuv_samples.py`.
 """
 
+import importlib.util
 import itertools
+import json
+import os
 
 import numpy as np
 import pytest
@@ -27,7 +30,8 @@ from libav_tpu_torch import testdata
 from libav_tpu_torch.avutil.frame import Frame
 from libav_tpu_torch.formats.api import open_input
 from libav_tpu_torch.swscale.bitexact import scale_plane
-from libav_tpu_torch.swscale.yuv2rgb import yuv2rgb, yuv2rgb_plain
+from libav_tpu_torch.swscale.yuv2rgb import (constants, fma, yuv2rgb,
+                                             yuv2rgb_plain)
 from libav_tpu_torch.tools import avconv
 
 
@@ -91,26 +95,155 @@ def test_plane_scaler_matches_jax(algo, direction):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("dst_fmt", ["yuv444p", "yuvj444p", "yuv422p",
-                                     "yuvj422p", "yuv420p", "yuvj420p"])
-@pytest.mark.parametrize("hw", [(1080, 1920), (37, 53)])
-def test_rgb_to_yuv_matches_xla(hw, dst_fmt):
-    h, w = hw
-    rng = np.random.default_rng(h + len(dst_fmt))
-    rgb = rng.integers(0, 256, (h, 3 * w), dtype=np.uint8)
+RGB2YUV_FORMATS = ["yuv444p", "yuvj444p", "yuv422p", "yuvj422p", "yuv420p",
+                   "yuvj420p"]
+
+
+def _rgb_to_yuv_both(rgb, h, w, dst_fmt):
+    """SwsContext._rgb_to_yuv of the JAX package and of the port on the
+    CPU, the same rgb24 frame: lists of numpy planes."""
     want = jsw.SwsContext(w, h, "rgb24", w, h, dst_fmt)._rgb_to_yuv(
         [rgb], "rgb24", dst_fmt)
     got = tsw.SwsContext(w, h, "rgb24", w, h, dst_fmt,
                          device="cpu")._rgb_to_yuv(
         [torch.from_numpy(rgb)], "rgb24", dst_fmt)
-    for a, b in zip(want, got):
-        a, b = np.asarray(a).astype(int), b.numpy().astype(int)
+    return [np.asarray(a) for a in want], [b.numpy() for b in got]
+
+
+@pytest.mark.parametrize("dst_fmt", RGB2YUV_FORMATS)
+@pytest.mark.parametrize("seed", [None, 5])
+@pytest.mark.parametrize("hw", [(1080, 1920), (720, 1280), (480, 640),
+                                (37, 53)])
+def test_rgb_to_yuv_matches_xla(hw, seed, dst_fmt):
+    """Random rgb24 frames (seed None: h + len(fmt)): 0 differing
+    bytes."""
+    h, w = hw
+    rng = np.random.default_rng(h + len(dst_fmt) if seed is None else seed)
+    rgb = rng.integers(0, 256, (h, 3 * w), dtype=np.uint8)
+    for a, b in zip(*_rgb_to_yuv_both(rgb, h, w, dst_fmt)):
+        assert a.shape == b.shape and b.dtype == np.uint8
+        np.testing.assert_array_equal(b, a)
+
+
+@pytest.mark.parametrize("dst_fmt", RGB2YUV_FORMATS)
+@pytest.mark.parametrize("hw,order", [((1080, 1920), "rows"),
+                                      ((720, 1280), "rows"),
+                                      ((37, 53), "pairs"),
+                                      ((71, 255), "pairs"),
+                                      ((72, 127), "pairs"),
+                                      ((135, 241), "rows")])
+def test_rgb_to_yuv_adversarial_matches_xla(hw, order, dst_fmt):
+    """testdata.rgb2yuv_frame: blocks on which the port's rounding and
+    another order of the same arithmetic differ, each at every chroma
+    column of the 1080-line frame, at shapes on both sides of
+    `mean_order` (its 4:2:0 answer given): 0 differing bytes."""
+    h, w = hw
+    sub = SUBSAMPLING[dst_fmt[-4:-1]]
+    assert tsw.mean_order(h, w, *sub) == (order if sub == (1, 1)
+                                          else "rows")
+    rgb = testdata.rgb2yuv_frame(h, w, dst_fmt)
+    if h == 1080:       # every unit at every chroma column
+        chroma_rows = h // 2 if dst_fmt.endswith("420p") else h
+        assert len(testdata.rgb2yuv_units(dst_fmt)) <= chroma_rows
+    for a, b in zip(*_rgb_to_yuv_both(rgb, h, w, dst_fmt)):
         assert a.shape == b.shape
-        if dst_fmt == "yuv422p":
-            assert np.abs(a - b).max() <= 1
-            assert (a != b).sum() <= max(1, a.size // 100000)
+        np.testing.assert_array_equal(b, a)
+
+
+def _sample_search():
+    spec = importlib.util.spec_from_file_location(
+        "gen_rgb2yuv_samples", os.path.join(
+            os.path.dirname(__file__), "..", "tools",
+            "gen_rgb2yuv_samples.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("dst_fmt", RGB2YUV_FORMATS)
+def test_rgb2yuv_samples_have_teeth(dst_fmt):
+    """Every committed unit gives another byte under the alternative it
+    was found for than under the port's rule (numpy, the search's own
+    arithmetic)."""
+    gen = _sample_search()
+    full = dst_fmt.startswith("yuvj")
+    with open(testdata.RGB2YUV_SAMPLES) as f:
+        units = json.load(f)["samples"]["full" if full else "limited"][
+            dst_fmt[-4:-1]]
+    assert units
+    for unit in units:
+        comp, alt = unit["what"].split()
+        rgb = np.array(unit["rgb"], np.float32)
+        r, g, b = rgb[:, 0], rgb[:, 1], rgb[:, 2]
+        port = gen.component(comp, full, "port", r, g, b)
+        if comp == "Y":
+            other = gen.component(comp, full, alt, r, g, b)
+            assert (gen.to_byte(port) != gen.to_byte(other)).any(), unit
+            continue
+        if alt in gen.ORDER_ALTS:
+            other = gen.block_mean(port[None], alt)
         else:
-            np.testing.assert_array_equal(b, a)
+            other = gen.block_mean(
+                gen.component(comp, full, alt, r, g, b)[None])
+        assert gen.to_byte(gen.block_mean(port[None]))[0] != \
+            gen.to_byte(other)[0], unit
+
+
+def _fma_exact(a, b, c):
+    """float32 a*b+c with one rounding: the product is exact in float64,
+    the sum is rounded to odd in float64 (TwoSum), then to float32."""
+    p = a.astype(np.float64) * np.float64(b)
+    c = np.broadcast_to(np.asarray(c, np.float64), p.shape)
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    even = (s.view(np.int64) & 1) == 0
+    s = np.where((e != 0) & even,
+                 np.nextafter(s, np.where(e > 0, np.inf, -np.inf)), s)
+    return s.astype(np.float32)
+
+
+def _fma_port(a, b, c):
+    c = torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
+        np.asarray(c, np.float32), a.shape)))
+    return fma(torch.from_numpy(a), float(b), c).numpy()
+
+
+@pytest.mark.parametrize("chain", ["rgb2yuv", "yuv2rgb_limited",
+                                   "yuv2rgb_full"])
+def test_fma_emulation_rounds_once(chain):
+    """yuv2rgb.fma (float64 product and sum, then float32) equals a
+    correctly rounded float32 FMA at every step of the port's rules, on
+    all 2^24 inputs of each (in four slices)."""
+    f32 = np.float32
+    for part in range(4):
+        v = np.arange(part << 22, (part + 1) << 22, dtype=np.uint32)
+        a = (v >> 16).astype(f32)
+        b = ((v >> 8) & 255).astype(f32)
+        c = (v & 255).astype(f32)
+        steps = []
+        if chain == "rgb2yuv":
+            for k0, k1, k2 in ((0.299, 0.587, 0.114),
+                               (-0.168736, -0.331264, 0.5),
+                               (0.5, -0.418688, -0.081312)):
+                k0, k1, k2 = f32(k0), f32(k1), f32(k2)
+                t1 = _fma_exact(a, k0, b * k1)
+                t = _fma_exact(c, k2, t1)
+                steps += [(a, k0, b * k1), (c, k2, t1)]
+                for scale, off in ((219.0, 16.0), (224.0, 128.0)):
+                    steps.append((t, f32(scale * f32(1.0 / 255.0)), off))
+        else:
+            full = chain == "yuv2rgb_full"
+            ky, oy, kru, kgu, kgv, kbv = (f32(k) for k in constants(full))
+            ys, uc, vc = (a - oy).astype(f32), b - 128, c - 128
+            yf = ys * ky
+            steps += [(ys, ky, kru * vc), (vc, kru, yf), (uc, kbv, yf),
+                      (ys, ky, kbv * uc), (ys, ky, kgu * uc),
+                      (uc, kgu, yf), (vc, kgv, _fma_exact(uc, kgu, yf)),
+                      (vc, kgv, _fma_exact(ys, ky, kgu * uc))]
+        for x, k, y in steps:
+            np.testing.assert_array_equal(_fma_port(x, k, y),
+                                          _fma_exact(x, k, y))
 
 
 FRAME_CASES = [
