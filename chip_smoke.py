@@ -126,7 +126,29 @@ Phases, in order; any failure exits nonzero and prints no result:
      against deblock_frame_plain, exact, with its time per call, its
      device time warm and cold and its bound; and the port's avconv
      `-benchmark -i paff.h264 -f framecrc`, byte-identical to the JAX
-     CLI's committed framecrc.
+     CLI's committed framecrc;
+ 15. the container and audio-encode path (testdata/containers.py): the
+     port's avconv muxes, with -c copy, bench.h264 and the committed
+     ADTS AAC stream into out.mp4, then its video and the stereo AC-3
+     stream into out.mkv and out.ts, each md5-identical to the JAX CLI's;
+     `-benchmark -i out.mp4 -f framecrc` with its video lines
+     byte-identical to the JAX CLI's (K1's frame kernel once per frame,
+     the wave kernel never, the AAC IMDCT on the card) and its AAC
+     decoded to s16 at 44.1 kHz within 1 LSB of the JAX CLI's committed
+     PCM (the count that differ printed); `-f framecrc` on out.mkv and
+     out.ts (video copied, 3 s of AC-3 decoded) byte-identical; the
+     transcode `-benchmark -i out.mkv -t 3 -c:v mpeg4 -q:v 6 -g 12 -bf 2
+     -c:a aac out2.mp4`: its MPEG-4 packets md5-identical to the JAX
+     CLI's with K1 once per decoded frame and K2 once per anchor, its AAC
+     packets as many as the JAX CLI's, the count that differ printed and
+     the SNR against the source within 0.05 dB of the JAX packets' (both
+     decoded by the port on the card; the AAC MDCT on the card), and the
+     CLI's fps; then the first 3 s of the AC-3 stream decoded (fltp) and
+     encoded to MP2, MP1, MP3, MP3 with joint stereo and FLAC, every
+     packet md5-identical to the JAX encoder's and decoded back
+     md5-identical to the JAX decoder's, with realtime factors; and to
+     AC-3 (MDCT on the card, its calls counted) to the same bar as the
+     AAC packets.
 Profiled windows (the kernels' device times, phases 6 and 10's busy
 shares, kernel_probe in phase 7) count the launches of the hand kernel
 they hold against its wrapper's count: torch.profiler on the card loses
@@ -1423,7 +1445,7 @@ def phase_config5_kernel(dev, card):
     from libav_tpu_torch import swscale as tsw
     h, w = 1080, 1920
     for fmt in ("yuv444p", "yuvj444p", "yuv422p", "yuvj422p", "yuv420p",
-                "yuvj420p"):
+                "yuvj420p", "yuv440p", "yuv411p", "yuv410p"):
         rgb = torch.from_numpy(testdata.rgb2yuv_frame(h, w, fmt))
         got, want = (tsw.SwsContext(w, h, "rgb24", w, h, fmt, device=d)
                      ._rgb_to_yuv([rgb.to(d)], "rgb24", fmt)
@@ -1434,7 +1456,8 @@ def phase_config5_kernel(dev, card):
         if n:
             raise AssertionError(f"rgb24 -> {fmt} on the card: {n} bytes "
                                  f"differ from the CPU's")
-    log(f"phase 12 rgb24 -> yuv/yuvj 444/422/420p of the {w}x{h} "
+    log(f"phase 12 rgb24 -> yuv/yuvj 444/422/420p and yuv 440/411/410p "
+        f"of the {w}x{h} "
         f"adversarial frames (testdata.rgb2yuv_frame): the card's bytes "
         f"equal the CPU's [{card}]")
     return r
@@ -1704,6 +1727,231 @@ def phase_h264_ext(dev, card):
     return out
 
 
+def bench_frames(err):
+    """{"frames", "fps"} of avconv -benchmark's report: the frames of
+    every stream, audio included."""
+    m = re.search(r"frames=(\d+) fps=([0-9.]+)", err)
+    return {"frames": int(m.group(1)), "fps": float(m.group(2))}
+
+
+def phase_containers(dev, card):
+    """Phase 15: the container and audio-encode path through the port's
+    avconv and codecs on the card, against the JAX package's committed
+    goldens (libav_tpu_torch/testdata/containers.py)."""
+    import zlib
+    import numpy as np
+    from libav_tpu_torch import testdata
+    from libav_tpu_torch.avutil.frame import Frame, Packet
+    from libav_tpu_torch.codecs import api
+    from libav_tpu_torch.formats import FormatContext
+    from libav_tpu_torch.ops import fftmdct, idct
+    from libav_tpu_torch.ops import h264deblock as db
+    from libav_tpu_torch.testdata import containers as C
+    from libav_tpu_torch.tools import avconv
+    gold = testdata.load_golden(C.GOLDEN)
+    nframes = len(testdata.load_golden()["frames"])
+    r = {}
+
+    def reset():
+        db.h264_deblock_frame.launches = 0
+        db.h264_deblock_wave.launches = 0
+        idct.idct8x8_int.launches = 0
+        fftmdct.mdct.calls = 0
+        fftmdct.imdct.calls = 0
+
+    def snr_bar(tag, src, par, port, jax_datas):
+        """The §3 end-to-end bar of an AAC / AC-3 packet stream: count,
+        packets differing, SNR of both decodes on the card."""
+        codec = par.codec_id
+        want = gold["transcode"]["audio_md5"] if codec == "aac" else \
+            gold["ac3"]["packets"]
+        if len(port) != len(want) or len(jax_datas) != len(want):
+            raise AssertionError(f"{tag}: {len(port)} packets, the JAX "
+                                 f"encoder's {len(want)}")
+        differ = sum(C.md5(d) != w for d, w in zip(port, want))
+        snr_port = C.snr_db(src, C.decode_pcm(
+            api, par, [Packet(data=d) for d in port], device=dev),
+            C.DELAY[codec])
+        snr_jax = C.snr_db(src, C.decode_pcm(
+            api, par, [Packet(data=d) for d in jax_datas], device=dev),
+            C.DELAY[codec])
+        if abs(snr_port - snr_jax) > C.SNR_TOLERANCE_DB or snr_jax < 10:
+            raise AssertionError(f"{tag}: SNR {snr_port:.4f} dB against the "
+                                 f"JAX packets' {snr_jax:.4f} dB")
+        return {"packets": len(want), "differing": differ,
+                "snr_db": snr_port, "jax_snr_db": snr_jax}
+
+    work = tempfile.mkdtemp()
+    try:
+        C.write_inputs(work)
+
+        def cli(*args):
+            return run_cli(avconv, C.in_dir(args, work), dev)
+
+        def at(name):
+            return os.path.join(work, name)
+
+        def read(name):
+            with open(at(name), "rb") as f:
+                return f.read()
+
+        for out, args in C.MUX:
+            _, _, seconds = cli(*args, out)
+            if C.md5(read(out)) != gold["mux"][out]:
+                raise AssertionError(f"avconv -c copy {out}: md5 differs "
+                                     f"from the JAX CLI's")
+            log(f"phase 15 avconv {' '.join(args)} {out}: "
+                f"{len(read(out))} bytes, md5-identical to the JAX CLI's "
+                f"({seconds:.2f} s)")
+
+        reset()
+        _, err, seconds = cli("-benchmark", "-i", "out.mp4", "-f",
+                              "framecrc", at("out.mp4.framecrc"))
+        k1 = (db.h264_deblock_frame.launches, db.h264_deblock_wave.launches)
+        imdct_calls = fftmdct.imdct.calls
+        with open(C.framecrc_path("out.mp4")) as f:
+            want = f.read().splitlines()
+        got = read("out.mp4.framecrc").decode().splitlines()
+        video = [(a, b) for a, b in zip(got, want) if not b.startswith("1,")]
+        audio = [(a, b) for a, b in zip(got, want) if b.startswith("1,")]
+        if len(got) != len(want) or any(a != b for a, b in video):
+            raise AssertionError("avconv -i out.mp4 -f framecrc: the video "
+                                 "lines differ from the JAX CLI's")
+        if k1 != (nframes, 0) or imdct_calls == 0:
+            raise AssertionError(f"avconv -i out.mp4: {k1} K1 frame and "
+                                 f"wave launches, {imdct_calls} IMDCT "
+                                 f"calls; expected ({nframes}, 0), some")
+        r["mp4_decode"] = {"k1": k1[0], "seconds": seconds,
+                           **bench_frames(err)}
+        _, _, pcm_seconds = cli("-i", "out.mp4", *C.MP4_PCM, at("mp4.s16"))
+        got = np.frombuffer(read("mp4.s16"), np.int16)
+        with open(testdata.pcm_golden_path("aac_lc_48k"), "rb") as f:
+            ref = np.frombuffer(zlib.decompress(f.read()), np.int16)
+        diff = np.abs(got.astype(np.int32) - ref) if got.shape == \
+            ref.shape else None
+        if diff is None or diff.max() > 1:
+            raise AssertionError("avconv -i out.mp4 -vn -ar 44100: the AAC "
+                                 "PCM is not within 1 LSB of the JAX CLI's")
+        r["mp4_decode"]["pcm_differing"] = int((diff > 0).sum())
+        log(f"phase 15 avconv -benchmark -i out.mp4 -f framecrc: video "
+            f"lines byte-identical to the JAX CLI's, {k1[0]} K1 frame "
+            f"launches and {k1[1]} wave launches, "
+            f"{sum(a == b for a, b in audio)} of {len(audio)} AAC lines "
+            f"identical, {imdct_calls} IMDCT calls on the card; CLI "
+            f"{r['mp4_decode']['fps']} frames/s over "
+            f"{r['mp4_decode']['frames']} video and audio frames "
+            f"({seconds:.2f} s wall); -vn "
+            f"{' '.join(C.MP4_PCM[1:])}: every s16 sample within 1 LSB of "
+            f"the JAX CLI's, {int((diff > 0).sum())} of {ref.size} differ "
+            f"({pcm_seconds:.2f} s) [{card}]")
+
+        for out in ("out.mkv", "out.ts"):
+            crc = out + ".framecrc"
+            _, _, seconds = cli("-i", out, *C.FRAMECRC[out], "-f",
+                                "framecrc", at(crc))
+            with open(C.framecrc_path(out), "rb") as f:
+                if read(crc) != f.read():
+                    raise AssertionError(f"avconv -i {out} -f framecrc: "
+                                         f"differs from the JAX CLI's")
+            log(f"phase 15 avconv -i {out} {' '.join(C.FRAMECRC[out])} -f "
+                f"framecrc: byte-identical to the JAX CLI's (AC-3 decoded "
+                f"on the host, {C.SOURCE_SECONDS:g} s of audio in "
+                f"{seconds:.2f} s, "
+                f"{C.SOURCE_SECONDS / seconds:.2f}x realtime) [{card}]")
+
+        reset()
+        src_name, args, dst = C.TRANSCODE
+        _, err, seconds = cli("-benchmark", "-i", src_name, *args, dst)
+        k1 = (db.h264_deblock_frame.launches, db.h264_deblock_wave.launches)
+        k2, mdct_calls = idct.idct8x8_int.launches, fftmdct.mdct.calls
+        t = gold["transcode"]
+        _, video = C.read_stream(FormatContext, os.path.join(work, dst),
+                                 api.MediaType.VIDEO)
+        apar, audio = C.read_stream(FormatContext, os.path.join(work, dst),
+                                    api.MediaType.AUDIO)
+        if [C.md5(bytes(p.data)) for p in video] != t["video_md5"]:
+            raise AssertionError("avconv transcode: the MPEG-4 packets "
+                                 "differ from the JAX CLI's")
+        if k1 != (nframes, 0) or k2 != t["anchors"]:
+            raise AssertionError(f"avconv transcode: {k1} K1 frame and wave"
+                                 f" launches, {k2} K2; expected "
+                                 f"({nframes}, 0), {t['anchors']}")
+        if apar.extradata.hex() != t["audio_extradata"] or \
+                mdct_calls < len(audio):
+            raise AssertionError(f"avconv transcode: AAC config "
+                                 f"{apar.extradata.hex()}, {mdct_calls} "
+                                 f"MDCT calls for {len(audio)} packets")
+        src = C.source_pcm(api, FormatContext,
+                           os.path.join(work, "ac3_20_48k.ac3"), device=dev)
+        aac = snr_bar("avconv transcode AAC", src, apar,
+                      [bytes(p.data) for p in audio],
+                      testdata.read_packets(C.JAX_PACKETS["aac"]))
+        r["transcode"] = {"seconds": seconds, "k1": k1[0], "k2": k2,
+                          "mdct_calls": mdct_calls, "aac": aac,
+                          **bench_frames(err)}
+        log(f"phase 15 avconv -benchmark -i {src_name} {' '.join(args)} "
+            f"{dst}: {len(video)} MPEG-4 packets ({t['vop_types']}) "
+            f"md5-identical to the JAX CLI's, {k1[0]} K1 frame launches, "
+            f"{k1[1]} wave, {k2} K2 (one per anchor); AAC {aac['packets']} "
+            f"packets, {aac['differing']} differ from the JAX CLI's, SNR "
+            f"{aac['snr_db']:.4f} dB against the JAX packets' "
+            f"{aac['jax_snr_db']:.4f} dB (both decoded by the port on the "
+            f"card), {mdct_calls} MDCT calls on the card; CLI "
+            f"{r['transcode']['fps']} frames/s over "
+            f"{r['transcode']['frames']} video and audio frames "
+            f"({seconds:.2f} s wall) [{card}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    src = C.source_pcm(api, FormatContext, testdata.audio_path(C.SOURCE),
+                       device=dev)
+    if C.pcm_md5(src) != gold["source"]["md5"]:
+        raise AssertionError("the AC-3 source PCM differs from the JAX "
+                             "decoder's")
+    secs = src.shape[1] / 48000
+    r["encodes"] = {}
+    for name, (codec, opts) in C.ENCODES.items():
+        t0 = time.perf_counter()
+        datas = C.encode(api, Frame, codec, opts, src)
+        t1 = time.perf_counter()
+        pcm = C.decode_back(api, Packet, codec, datas, device=dev)
+        t2 = time.perf_counter()
+        want = gold["encodes"][name]
+        if [C.md5(d) for d in datas] != want["packets"]:
+            raise AssertionError(f"{name} encode: packets differ from the "
+                                 f"JAX encoder's")
+        if C.pcm_md5(pcm) != want["pcm_md5"]:
+            raise AssertionError(f"{name} decode: PCM differs from the JAX "
+                                 f"decoder's")
+        r["encodes"][name] = {"encode_realtime": secs / (t1 - t0),
+                              "decode_realtime": secs / (t2 - t1)}
+        log(f"phase 15 {name} {opts}: {len(datas)} packets md5-identical "
+            f"to the JAX encoder's, decoded back md5-identical to the JAX "
+            f"decoder's; {secs:g} s of audio encoded in {t1 - t0:.2f} s "
+            f"({secs / (t1 - t0):.2f}x realtime), decoded in "
+            f"{t2 - t1:.2f} s ({secs / (t2 - t1):.2f}x) [{card}]")
+    fftmdct.mdct.calls = 0
+    t0 = time.perf_counter()
+    datas = C.encode(api, Frame, *C.AC3, src, device=dev)
+    seconds = time.perf_counter() - t0
+    calls = fftmdct.mdct.calls
+    par = api.CodecParameters(codec_type=api.MediaType.AUDIO,
+                              codec_id="ac3", sample_rate=48000, channels=2)
+    ac3 = snr_bar("AC-3 encode", src, par, datas,
+                  testdata.read_packets(C.JAX_PACKETS["ac3"]))
+    if calls != len(datas):
+        raise AssertionError(f"AC-3 encode: {calls} MDCT calls for "
+                             f"{len(datas)} frames")
+    r["ac3"] = dict(ac3, mdct_calls=calls, realtime=secs / seconds)
+    log(f"phase 15 ac3 {C.AC3[1]}: {ac3['packets']} packets, "
+        f"{ac3['differing']} differ from the JAX encoder's, SNR "
+        f"{ac3['snr_db']:.4f} dB against the JAX packets' "
+        f"{ac3['jax_snr_db']:.4f} dB (both decoded by the port); {calls} "
+        f"MDCT calls on the card; {secs:g} s of audio in {seconds:.2f} s "
+        f"({secs / seconds:.2f}x realtime) [{card}]")
+    return r
+
+
 def probe_record(name, source, line, what, probe, l2, library):
     """The kernels-line entry of P1 or P2 from phase 7's results."""
     times = probe["times"]
@@ -1834,9 +2082,11 @@ def main():
     config5 = phase_config5(dev, card)
     m4dec = phase_mpeg4_decode(dev, card, mpeg4)
     ext = phase_h264_ext(dev, card)
+    cont = phase_containers(dev, card)
     k2_paths = {"mpeg2 decodes": k2_launches, "mjpeg decode": mjpeg_launches,
                 "mpeg4 encode": mpeg4["launches"],
-                "mpeg4 decode": m4dec["launches"]}
+                "mpeg4 decode": m4dec["launches"],
+                "mkv to mp4 transcode": cont["transcode"]["k2"]}
 
     max_err = max(lines["max_abs_err"], deblock["max_abs_err"])
     k1_49k, p2_49k = probe["l2"]["K1 lines"], probe["l2"]["P2"]
@@ -1845,8 +2095,10 @@ def main():
     frame_entry = deblock_record("h264_deblock_frame", "frame", launches[0],
                                  max(max_err, ext["field"]["max_abs_err"]),
                                  d)
-    frame_entry["launches_by_path"] = {"bench decode": launches[0],
-                                       **ext["launches"]}
+    frame_entry["launches_by_path"] = {
+        "bench decode": launches[0], **ext["launches"],
+        "mp4 decode": cont["mp4_decode"]["k1"],
+        "mkv to mp4 transcode": cont["transcode"]["k1"]}
     frame_entry["field_picture"] = ext["field"]
     record = {"kernels": [
         frame_entry,
@@ -1901,7 +2153,8 @@ def main():
                      "launches); launches: the two MPEG-2 streams' decodes; "
                      "launches_by_path: each path's first run (those "
                      "decodes, the MJPEG decode, the MPEG-4 encode's "
-                     "anchors, the MPEG-4 decode of its 7 VOPs); in the "
+                     "anchors, the MPEG-4 decode of its 7 VOPs, phase "
+                     "15's transcode anchors); in the "
                      "MPEG-4 encode "
                      f"{k2_encode} on the device per launch; "
                      f"at 24,480 (a field): {k2[24480][0]} ms, device "

@@ -72,8 +72,6 @@ _ENCODERS: Dict[str, Type["Encoder"]] = {}
 NOT_PORTED = {
     **dict.fromkeys(("h263", "flv1", "msmpeg4", "msmpeg4v2",
                      "msmpeg4v3", "msmpeg4v4", "wmv1"), "8b"),
-    **dict.fromkeys(("mp1", "mp2", "mp2float", "mp3", "mp3float", "flac"),
-                    "10b"),
     "prores": "11",
     "ffv1": "15",
 }
@@ -81,8 +79,7 @@ NOT_PORTED = {
 # encoder id -> the ROADMAP.md module-queue step that ports its device part
 ENCODER_STEPS = {
     "h264": "7", "mpeg1video": "8b", "mpeg2video": "8b", "mjpeg": "9",
-    "aac": "10b", "ac3": "10b", "mp1": "10b", "mp2": "10b", "mp3": "10b",
-    "flac": "10b", "prores": "11", "ffv1": "15",
+    "prores": "11", "ffv1": "15",
 }
 
 

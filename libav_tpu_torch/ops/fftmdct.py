@@ -13,7 +13,9 @@ copied.
 The JAX package's `imdct` is an XLA dot at Precision.HIGHEST; torch sums
 the same float32 products in another order, so the two differ by a few
 float32 ulps (about 3e-6 on AAC's full-scale output), which is recorded
-in ROADMAP.md §3. AC-3 uses the float64 host `imdct_host` in both.
+in ROADMAP.md §3; so do the two `mdct`s, the AAC and AC-3 encoders'
+transform. `mdct.calls` and `imdct.calls` count the calls. The AC-3
+decoder uses the float64 host `imdct_host` in both.
 
 Conventions (matching ISO 14496-3 §4.6.11.3 for AAC and A/52 §7.9 for
 AC-3): imdct(spec (B, N)) -> (B, 2N) time samples including the 2/N
@@ -73,7 +75,12 @@ def mdct(x: torch.Tensor) -> torch.Tensor:
     x's device."""
     _check_fp32_matmul(x.device)
     N = x.shape[-1] // 2
-    return torch.matmul(x.to(torch.float32), _basis(N, x.device).T)
+    out = torch.matmul(x.to(torch.float32), _basis(N, x.device).T)
+    mdct.calls += 1
+    return out
+
+
+mdct.calls = 0
 
 
 def imdct(spec: torch.Tensor) -> torch.Tensor:

@@ -324,26 +324,56 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def mean_order(h: int, w: int, lw: int, lh: int) -> str:
+def mean_order(h: int, w: int, lw: int, lh: int, full: bool) -> str:
     """How XLA's CPU code sums each 2^lh x 2^lw chroma block of an h x w
-    frame in the JAX program (jax 0.9.0): "rows", ((p00 + p01) + p10) +
-    p11, a scalar sum over the block's rows; or, at 4:2:0, "pairs",
-    (p00 + p01) + (p10 + p11), where LLVM vectorises the 2x2 reduce over
-    the block's two rows and adds the two lanes last. Read from the
-    object code at 53x37, 97x71 and 255x71 (pairs) and 129x71, 241x135,
-    1280x720 and 1920x1080 (rows): the reduce runs in a loop of its own
-    when an odd width is edge-padded, and is vectorised when the padded
-    row (w + 1 values) is a power of two of at least 128, or, with the
-    height padded too, when w < 128. Held on 147 shapes (widths 1-2199)
-    against XLA's bytes on frames built to tell the two apart. 4:2:2
-    sums two values (either order) and 4:4:4 none; other subsamplings
-    are taken as "rows" (not read)."""
-    if (lw, lh) != (1, 1) or w % 2 == 0:
+    frame in the JAX program (jax 0.9.0). "rows": a scalar sum from 0
+    over the block's rows in turn, ((p00 + p01) + p10) + p11 at 4:2:0.
+    "pairs": LLVM vectorises the reduce with one lane per block row, each
+    lane summing its row left to right, and adds the lanes in pairs last:
+    (p00 + p01) + (p10 + p11) at 4:2:0, (r0 + r2) + (r1 + r3) over the
+    four row sums at 4:1:0. "colpairs": the same with one lane per block
+    column. The object code (XLA_FLAGS=--xla_dump_to) shows "pairs" at
+    4:2:0 for 53x37, 97x71 and 255x71, "rows" for 129x71, 241x135,
+    1280x720 and 1920x1080, and at 4:1:0 "pairs" for 1920x1080 (the four
+    rows in the lanes of one xmm register, added by vshufpd and
+    vmovshdup). Where the reduce is vectorised depends on the edge
+    padding, because a padded edge gets a loop of its own:
+      4:2:0  an even width, unpadded: "rows"; an odd width: "pairs" when
+             the padded row (w + 1 values) is a power of two of at least
+             128, or, with the height padded too, when 1 < w < 128. A
+             frame of one chroma row (h = 2, or 1 x 2) in limited range is
+             vectorised at every even width and every odd one below 128;
+             in full range (a different fusion) at h = 2 only when w = 1.
+      4:1:0  "pairs" when no column is padded (w % 4 == 0), else only
+             when w < 125 with the height unpadded, or w < 4 with it
+             padded; three frames of one chroma row differ (`_TINY_410`).
+      4:1:1  "rows" (left to right) at every shape tried. 4:2:2 and
+             4:4:0 sum two values (either order), 4:4:4 none.
+    `tools/check_rgb2yuv_order.py` holds the rule against XLA's bytes at
+    each shape it is given, on frames built to tell the orders apart."""
+    if (lw, lh) == (2, 2):
+        if (h, w) in _TINY_410:
+            return _TINY_410[(h, w)]
+        if w % 4 == 0:
+            return "pairs"
+        return "pairs" if w < (4 if h % 4 else 125) else "rows"
+    if (lw, lh) != (1, 1):
         return "rows"
     row_pow2 = (w + 1) & w == 0
+    if h == 2 and full:
+        return "pairs" if w == 1 or (row_pow2 and w >= 127) else "rows"
+    if h == 2 or (h, w) == (1, 2):
+        return "pairs" if w % 2 == 0 or w < 128 or row_pow2 else "rows"
+    if w % 2 == 0:
+        return "rows"
     if h % 2:
-        return "pairs" if w < 128 or row_pow2 else "rows"
+        return "pairs" if w > 1 and (w < 128 or row_pow2) else "rows"
     return "pairs" if row_pow2 and w >= 127 else "rows"
+
+
+# 4:1:0 frames of one chroma row whose reduce LLVM lays out otherwise:
+# "colpairs" is one lane per block column, the lanes then in pairs
+_TINY_410 = {(1, 2): "colpairs", (3, 1): "rows", (4, 2): "rows"}
 
 
 def _rgb2yuv(rgb: torch.Tensor, h: int, w: int, full: bool, lw: int,
@@ -358,8 +388,8 @@ def _rgb2yuv(rgb: torch.Tensor, h: int, w: int, full: bool, lw: int,
       full range:    y = t,             c = t + 128
     where K = f32(219 * f32(1/255)) and K' = f32(224 * f32(1/255)): XLA
     folds `x * 219 / 255` into one multiplication by a constant it
-    rounds twice. The chroma mean sums from 0 in `mean_order` and
-    multiplies by 1/4 or 1/2."""
+    rounds twice. The chroma mean sums in `mean_order`'s order and
+    multiplies by 1/16, 1/4 or 1/2."""
     x = rgb.reshape(h, w, 3).float()
     r, g, b = x[..., 0], x[..., 1], x[..., 2]
 
@@ -382,13 +412,24 @@ def _rgb2yuv(rgb: torch.Tensor, h: int, w: int, full: bool, lw: int,
         ch, cw = -(-h // fh), -(-w // fw)
         rows = torch.arange(ch * fh, device=x.device).clamp(max=h - 1)
         cols = torch.arange(cw * fw, device=x.device).clamp(max=w - 1)
-        pairs = mean_order(h, w, lw, lh) == "pairs"
+        order = mean_order(h, w, lw, lh, full)
 
         def mean(c):
             q = c[rows][:, cols].reshape(ch, fh, cw, fw)
-            if pairs:
-                s = (q[:, 0, :, 0] + q[:, 0, :, 1]) + \
-                    (q[:, 1, :, 0] + q[:, 1, :, 1])
+            if order != "rows":
+                lanes = []
+                for a in range(fh if order == "pairs" else fw):
+                    vals = [q[:, a, :, j] for j in range(fw)] \
+                        if order == "pairs" else \
+                        [q[:, i, :, a] for i in range(fh)]
+                    s = vals[0]
+                    for v in vals[1:]:
+                        s = s + v
+                    lanes.append(s)
+                while len(lanes) > 1:
+                    half = len(lanes) // 2
+                    lanes = [lanes[k] + lanes[k + half] for k in range(half)]
+                s = lanes[0]
             else:
                 s = torch.zeros((ch, cw), dtype=torch.float32,
                                 device=x.device)

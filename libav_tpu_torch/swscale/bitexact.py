@@ -270,8 +270,9 @@ class PlaneScaler:
 
 @functools.lru_cache(maxsize=64)
 def scale_plane(src_w: int, src_h: int, dst_w: int, dst_h: int,
-                algo: str = BICUBIC, device="cpu") -> PlaneScaler:
-    """The bit-exact plane scaler for these sizes on `device`, built once."""
+                algo: str, device) -> PlaneScaler:
+    """The bit-exact plane scaler for these sizes on `device` (the caller
+    names it: "cpu" or a CUDA device), built once."""
     return PlaneScaler(src_w, src_h, dst_w, dst_h, algo,
                        torch.device(device))
 

@@ -286,12 +286,14 @@ def idct_blocks(seed, B):
 
 RGB2YUV_SAMPLES = os.path.join(HERE, "rgb2yuv_samples.json")
 # chroma block (rows, columns) by subsampling
-_CHROMA_BLOCK = {"444": (1, 1), "422": (1, 2), "420": (2, 2)}
+_CHROMA_BLOCK = {"444": (1, 1), "422": (1, 2), "420": (2, 2),
+                 "440": (2, 1), "411": (1, 4), "410": (4, 4)}
 
 
 def rgb2yuv_units(fmt: str) -> np.ndarray:
     """uint8 (n, rows, cols, 3): the RGB blocks, one per chroma sample of
-    fmt (yuv/yuvj 444/422/420p), on which the port's RGB -> YUV rounding
+    fmt (yuv/yuvj 444/422/420p, yuv440/411/410p), on which the port's
+    RGB -> YUV rounding
     and another plausible order of the same float32 arithmetic give
     different bytes (tools/gen_rgb2yuv_samples.py)."""
     sub = fmt[-4:-1]

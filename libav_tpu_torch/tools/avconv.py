@@ -19,23 +19,29 @@ port's codec table and devices:
     python -m libav_tpu_torch.tools.avconv -i in.h264 -f framecrc out.crc
     python -m libav_tpu_torch.tools.avconv -i in.m2v -c:v mpeg4 -q:v 6
         -g 12 -bf 2 -f m4v out.m4v          (one command: a transcode)
+    python -m libav_tpu_torch.tools.avconv -i in.mkv -c:v mpeg4 -c:a aac
+        out.mp4                             (a container transcode)
 
 run on CUDA and exit nonzero with a message where there is none;
-`main(argv, device="cpu")` runs the same path on the CPU. The decoders
-are the port's (H.264 with kernel K1; MPEG-1/2, MPEG-4 part 2 from .m4v
-or AVI FMP4/XVID/DIVX, and MJPEG with kernel K2) on that one device, and so are the audio decoders (AAC with its IMDCT
-on the device; AC-3/E-AC-3 and PCM on the host) and rawvideo (planes
-uploaded to the device). `-s` and `-pix_fmt` run the port's swscale on
-the CLI's device (YUV -> RGB through kernel `sws_yuv2rgb` on the
-card); `-ar`, `-ac` and `-sample_fmt` run the port's avresample on the
-host. The encoders are the host ones, rawvideo and PCM,
-and the MPEG-4 part 2 encoder (`-c:v mpeg4` with `-q:v`, `-g`, `-bf`
-and its pass-through options, qpel and mpegq among them), whose device
-programs run on the same device: decoded frames reach it as tensors
-there, with no trip to the host. Any other encoder raises ENCODER_NOT_FOUND naming the ROADMAP.md
-step that ports its device part. `-prof DIR` writes a torch.profiler
-Chrome trace into DIR plus the host timer report (with the H.264
-decoder's `h264.entropy` span). Filters (`-vf`, `-af`,
+`main(argv, device="cpu")` runs the same path on the CPU. The
+containers are the port's copies of the JAX package's (MOV/MP4,
+Matroska/WebM and MPEG-TS among them). The decoders are the port's
+(H.264 with kernel K1; MPEG-1/2, MPEG-4 part 2 from .m4v or AVI
+FMP4/XVID/DIVX, and MJPEG with kernel K2) on that one device, and so are
+the audio decoders (AAC with its IMDCT on the device; AC-3/E-AC-3,
+MP1/2/3, FLAC and PCM on the host) and rawvideo (planes uploaded to the
+device). `-s` and `-pix_fmt` run the port's swscale on the CLI's device
+(YUV -> RGB through kernel `sws_yuv2rgb` on the card); `-ar`, `-ac` and
+`-sample_fmt` run the port's avresample on the host. The encoders are
+the host ones (rawvideo, PCM, MP1/2/3 and FLAC), the AAC and AC-3
+encoders, whose MDCT runs on the CLI's device, and the MPEG-4 part 2
+encoder (`-c:v mpeg4` with `-q:v`, `-g`, `-bf` and its pass-through
+options, qpel and mpegq among them), whose device programs run on the
+same device: decoded frames reach it as tensors there, with no trip to
+the host. Any other encoder raises ENCODER_NOT_FOUND naming the
+ROADMAP.md step that ports its device part. `-prof DIR` writes a
+torch.profiler Chrome trace into DIR plus the host timer report (with
+the H.264 decoder's `h264.entropy` span). Filters (`-vf`, `-af`,
 `-filter_complex`) raise PATCHWELCOME naming their step.
 """
 
@@ -907,7 +913,10 @@ class _AudioChain(_VideoChain):
         self.out_par.sample_fmt = frame.format
         self.out_par.sample_rate = frame.sample_rate
         self.out_par.channels = frame.channels
-        self.enc = find_encoder(self.enc_name)(self.out_par)
+        cls = find_encoder(self.enc_name)
+        # the AAC and AC-3 encoders run their MDCT on the CLI's device
+        self.enc = cls(self.out_par, device=self.o.device) \
+            if cls.DEVICE_PART else cls(self.out_par)
         _set_enc_opts(self.enc, self.enc_opts, self.o)
         self.enc.open()
 

@@ -243,3 +243,64 @@ print("ok")
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]
     for name in runs:
         assert (tmp_path / ("port_" + name)).read_bytes() == want[name]
+
+
+def test_sources_cover_the_container_slice():
+    """The container and audio-encode slice's modules are in the scan."""
+    for path in ("codecs/ac3/enc.py", "codecs/aac/enc.py", "codecs/bsf.py",
+                 "formats/mov.py", "formats/matroska.py", "formats/mpegts.py",
+                 "codecs/mpegaudio/__init__.py", "codecs/mpegaudio/tables.py",
+                 "codecs/mpegaudio/synth.py", "codecs/mpegaudio/layer3.py",
+                 "codecs/mpegaudio/dec.py", "codecs/mpegaudio/enc.py",
+                 "formats/mp3raw.py", "codecs/flac/__init__.py",
+                 "codecs/flac/dec.py", "codecs/flac/enc.py",
+                 "formats/flacfmt.py", "avutil/fifo.py", "ops/float_dsp.py",
+                 "testdata/containers.py"):
+        assert "libav_tpu_torch/" + path in SOURCES
+
+
+def test_container_cli_with_jax_package_refused(tmp_path):
+    """The port's avconv muxes the small H.264 stream with AAC into MP4,
+    remuxes it with AC-3 into Matroska and MPEG-TS and encodes the AC-3
+    to MP2 and FLAC, in a process where jax and libav_tpu cannot be
+    imported: the JAX CLI's bytes."""
+    from libav_tpu_torch import testdata
+    from tools.gen_torch_smoke_stream import audio_signal, encode_audio
+    x = audio_signal(0.3, 2, 8)
+    aac, ac3 = str(tmp_path / "in.aac"), str(tmp_path / "in.ac3")
+    with open(aac, "wb") as f:
+        f.write(encode_audio("aac", x, {"quality": 10}))
+    with open(ac3, "wb") as f:
+        f.write(encode_audio("ac3", x, {"bitrate_kbps": 192}))
+    runs = [("o.mp4", ["-i", testdata.SMALL_H264, "-i", aac, "-map", "0:0",
+                       "-map", "1:0", "-c", "copy"]),
+            ("o.mkv", ["-i", "o.mp4", "-i", ac3, "-map", "0:0", "-map",
+                       "1:0", "-c", "copy"]),
+            ("o.ts", ["-i", "o.mp4", "-i", ac3, "-map", "0:0", "-map",
+                      "1:0", "-c", "copy"]),
+            ("o.mp2", ["-i", ac3, "-c:a", "mp2"]),
+            ("o.flac", ["-i", ac3, "-sample_fmt", "s16", "-c:a", "flac"])]
+    want = {}
+    for d, tool in (("jax", jax_avconv),):
+        (tmp_path / d).mkdir()
+        for name, argv in runs:
+            args = [str(tmp_path / d / a) if a.startswith("o.") else a
+                    for a in argv + [name]]
+            assert tool.main(args) == 0
+            want[name] = (tmp_path / d / name).read_bytes()
+    code = IMPORT_GUARD + f"""
+import torch
+torch.set_num_threads(1)
+from libav_tpu_torch.tools import avconv
+for name, argv in {runs!r}:
+    assert avconv.main(argv + [name], device="cpu") == 0
+loaded = sorted(m for m, v in sys.modules.items() if v is not None
+                and m.split(".")[0] in {REFUSED!r})
+assert loaded == [], loaded
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600, cwd=str(tmp_path))
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]
+    for name, _ in runs:
+        assert (tmp_path / name).read_bytes() == want[name], name

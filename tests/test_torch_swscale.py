@@ -41,7 +41,11 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-SUBSAMPLING = {"420": (1, 1), "422": (1, 0), "444": (0, 0)}
+SUBSAMPLING = {"420": (1, 1), "422": (1, 0), "444": (0, 0), "410": (2, 2),
+               "411": (2, 0), "440": (0, 1)}
+# subsamplings with a full-range (yuvj) pixel format; the others take
+# full range from the "pc" color range
+YUVJ = ("420", "422", "444")
 
 
 def _planes(seed, h, w, sw, sh):
@@ -61,13 +65,15 @@ def test_yuv2rgb_matches_xla(hw, sub, full, out_fmt):
     """SwsContext._yuv_to_rgb of both packages on the same planes: 0
     differing bytes."""
     (h, w), (sw, sh) = hw, SUBSAMPLING[sub]
-    src_fmt = ("yuvj" if full else "yuv") + sub + "p"
+    src_fmt = ("yuvj" if full and sub in YUVJ else "yuv") + sub + "p"
+    color_range = "pc" if full and sub not in YUVJ else "tv"
     planes = _planes(h + 7 * sw + 3 * sh, h, w, sw, sh)
     want = jsw.SwsContext(w, h, src_fmt, w, h, out_fmt)._yuv_to_rgb(
-        list(planes), src_fmt, out_fmt, "tv")[0]
+        list(planes), src_fmt, out_fmt, color_range)[0]
     got = tsw.SwsContext(w, h, src_fmt, w, h, out_fmt,
                          device="cpu")._yuv_to_rgb(
-        [torch.from_numpy(p) for p in planes], src_fmt, out_fmt, "tv")[0]
+        [torch.from_numpy(p) for p in planes], src_fmt, out_fmt,
+        color_range)[0]
     assert got.dtype == torch.uint8 and got.shape == (h, 3 * w)
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -96,7 +102,7 @@ def test_plane_scaler_matches_jax(algo, direction):
 
 
 RGB2YUV_FORMATS = ["yuv444p", "yuvj444p", "yuv422p", "yuvj422p", "yuv420p",
-                   "yuvj420p"]
+                   "yuvj420p", "yuv410p", "yuv411p", "yuv440p"]
 
 
 def _rgb_to_yuv_both(rgb, h, w, dst_fmt):
@@ -125,6 +131,12 @@ def test_rgb_to_yuv_matches_xla(hw, seed, dst_fmt):
         np.testing.assert_array_equal(b, a)
 
 
+# mean_order's 4:1:0 answer at the shapes of the test below: vectorised
+# when no column is edge-padded
+ORDER_410 = {(1080, 1920): "pairs", (720, 1280): "pairs", (37, 53): "rows",
+             (71, 255): "rows", (72, 127): "rows", (135, 241): "rows"}
+
+
 @pytest.mark.parametrize("dst_fmt", RGB2YUV_FORMATS)
 @pytest.mark.parametrize("hw,order", [((1080, 1920), "rows"),
                                       ((720, 1280), "rows"),
@@ -136,15 +148,53 @@ def test_rgb_to_yuv_adversarial_matches_xla(hw, order, dst_fmt):
     """testdata.rgb2yuv_frame: blocks on which the port's rounding and
     another order of the same arithmetic differ, each at every chroma
     column of the 1080-line frame, at shapes on both sides of
-    `mean_order` (its 4:2:0 answer given): 0 differing bytes."""
+    `mean_order` (its 4:2:0 answer given; 4:1:0's in ORDER_410): 0
+    differing bytes."""
     h, w = hw
     sub = SUBSAMPLING[dst_fmt[-4:-1]]
-    assert tsw.mean_order(h, w, *sub) == (order if sub == (1, 1)
-                                          else "rows")
+    assert tsw.mean_order(h, w, *sub, dst_fmt.startswith("yuvj")) == {
+        (1, 1): order, (2, 2): ORDER_410[hw]}.get(sub, "rows")
     rgb = testdata.rgb2yuv_frame(h, w, dst_fmt)
     if h == 1080:       # every unit at every chroma column
-        chroma_rows = h // 2 if dst_fmt.endswith("420p") else h
+        chroma_rows = h >> sub[1]
         assert len(testdata.rgb2yuv_units(dst_fmt)) <= chroma_rows
+    for a, b in zip(*_rgb_to_yuv_both(rgb, h, w, dst_fmt)):
+        assert a.shape == b.shape
+        np.testing.assert_array_equal(b, a)
+
+
+# (h, w) -> mean_order's answer for yuv420p, yuvj420p and yuv410p: the
+# edges of its rules (tools/check_rgb2yuv_order.py read XLA's bytes at
+# each)
+ORDER_EDGES = {
+    (8, 123): ("rows", "rows", "pairs"), (8, 125): ("rows", "rows", "rows"),
+    (1080, 124): ("rows", "rows", "pairs"),
+    (1080, 125): ("rows", "rows", "rows"),
+    (5, 3): ("pairs", "pairs", "pairs"), (5, 5): ("pairs", "pairs", "rows"),
+    (1081, 1920): ("rows", "rows", "pairs"),
+    (1081, 1921): ("rows", "rows", "rows"),
+    (1080, 1918): ("rows", "rows", "rows"), (4, 2): ("rows", "rows", "rows"),
+    (3, 1): ("rows", "rows", "rows"), (1, 2): ("pairs", "pairs", "colpairs"),
+    (2, 1): ("pairs", "pairs", "pairs"), (2, 7): ("pairs", "rows", "rows"),
+    (2, 1920): ("pairs", "rows", "pairs"),
+    (2, 127): ("pairs", "pairs", "rows"), (2, 129): ("rows", "rows", "rows"),
+    (5, 1): ("rows", "rows", "pairs"), (16, 255): ("pairs", "pairs", "rows"),
+    (5, 127): ("pairs", "pairs", "rows"), (5, 129): ("rows", "rows", "rows"),
+    (16, 1024): ("rows", "rows", "pairs"),
+}
+EDGE_FORMATS = ("yuv420p", "yuvj420p", "yuv410p")
+
+
+@pytest.mark.parametrize("dst_fmt", EDGE_FORMATS)
+@pytest.mark.parametrize("hw", list(ORDER_EDGES))
+def test_rgb_to_yuv_order_edges_match_xla(hw, dst_fmt):
+    """RGB -> YUV at the shapes where `mean_order` changes its answer,
+    on the adversarial frames: mean_order as read, 0 differing bytes."""
+    h, w = hw
+    sub = SUBSAMPLING[dst_fmt[-4:-1]]
+    assert tsw.mean_order(h, w, *sub, dst_fmt.startswith("yuvj")) == \
+        ORDER_EDGES[hw][EDGE_FORMATS.index(dst_fmt)]
+    rgb = testdata.rgb2yuv_frame(h, w, dst_fmt)
     for a, b in zip(*_rgb_to_yuv_both(rgb, h, w, dst_fmt)):
         assert a.shape == b.shape
         np.testing.assert_array_equal(b, a)
@@ -180,12 +230,13 @@ def test_rgb2yuv_samples_have_teeth(dst_fmt):
             other = gen.component(comp, full, alt, r, g, b)
             assert (gen.to_byte(port) != gen.to_byte(other)).any(), unit
             continue
+        shape = gen.BLOCK[dst_fmt[-4:-1]]
         if alt in gen.ORDER_ALTS:
-            other = gen.block_mean(port[None], alt)
+            other = gen.block_mean(port[None], shape, alt)
         else:
             other = gen.block_mean(
-                gen.component(comp, full, alt, r, g, b)[None])
-        assert gen.to_byte(gen.block_mean(port[None]))[0] != \
+                gen.component(comp, full, alt, r, g, b)[None], shape)
+        assert gen.to_byte(gen.block_mean(port[None], shape))[0] != \
             gen.to_byte(other)[0], unit
 
 

@@ -161,8 +161,8 @@ def test_avprobe_raises_device_faults(inputs, monkeypatch):
     (["-c:v", "mjpeg"], "step 9"),
     (["-c:v", "h264"], "step 7"),
     (["-c:v", "mpeg2video"], "step 8b"),
-    (["-c:v", "aac"], "step 10b"),
-    (["-c:v", "flac"], "step 10b"),
+    (["-c:v", "prores"], "step 11"),
+    (["-c:v", "ffv1"], "step 15"),
     (["-vf", "yadif"], "step 12"),
 ])
 def test_unported_parts_name_their_step(opts, step, inputs, tmp_path,
@@ -212,12 +212,29 @@ def test_avconv_mpeg4_to_avi_matches_jax(inputs, tmp_path):
 def test_unported_decoders_name_their_step():
     with pytest.raises(AVError, match="step 8b"):
         find_decoder("h263")
-    with pytest.raises(AVError, match="step 10b"):
-        find_decoder("mp3")
+    with pytest.raises(AVError, match="step 11"):
+        find_decoder("prores")
     with pytest.raises(AVError, match="step 15"):
         find_decoder("ffv1")
     dec = find_decoder("mjpeg")(device="cpu")
     assert dec.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("name,data,step", [
+    ("in.flv", b"FLV\x01\x05\x00\x00\x00\x09" + bytes(64), "step 8b"),
+    ("live.m3u8", b"#EXTM3U\n#EXT-X-TARGETDURATION:2\nseg0.ts\n",
+     "step 16"),
+])
+def test_unported_containers_name_their_step(name, data, step, tmp_path,
+                                              capsys):
+    """An FLV file and an HLS playlist: the JAX package has their
+    demuxers and the port not yet; avconv says which step ports each."""
+    src = tmp_path / name
+    src.write_bytes(data)
+    assert avconv.main(["-i", str(src), "-f", "framecrc",
+                        str(tmp_path / "o.crc")], device="cpu") == 1
+    err = capsys.readouterr().err
+    assert step in err and "libav_tpu_torch" in err
 
 
 def test_cuda_request_fails_cleanly(inputs, tmp_path, capsys):

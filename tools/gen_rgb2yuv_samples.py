@@ -13,8 +13,10 @@ for each component with coefficients (k0, k1, k2) on (r, g, b):
     limited range: fma(t, K, 16 or 128), K = f32(219 or 224 * f32(1/255))
     full range:    t (Y), t + 128 (U, V)
 
-then, for subsampled chroma, the mean of each 2x1 or 2x2 block summed
-row by row from 0 ((p00 + p01) + p10) + p11, times 1/2 or 1/4. The
+then, for subsampled chroma, the mean of each block (1x2, 2x1, 2x2, 1x4
+or 4x4) summed row by row from 0, ((p00 + p01) + p10) + p11 at 2x2,
+times 1/2, 1/4 or 1/16 (`mean_order` picks this "rows" sum or the
+vectorised "pairs" one by shape; the units here tell the two apart). The
 alternatives searched against it:
 
     unfused      every product and sum rounded: (k0*r + k1*g) + k2*b,
@@ -26,17 +28,22 @@ alternatives searched against it:
     old_div      (limited) the port's rule before its repair:
                  fma(t*219|224, f32(1/255), offset)
     exact_const  (limited) K = f32(219|224 / 255)
-    pairs        (4:2:0) (p00 + p01) + (p10 + p11)
-    columns      (4:2:0) ((p00 + p10) + p01) + p11
+    pairs        (4:2:0, 4:1:0) each row summed, the row sums added in
+                 pairs: (p00 + p01) + (p10 + p11) at 2x2, (r0 + r2) +
+                 (r1 + r3) at 4x4
+    columns      (4:2:0, 4:1:0) column by column from 0
+    halves       (4:1:1) (p0 + p2) + (p1 + p3)
+    adjacent     (4:1:1) (p0 + p1) + (p2 + p3)
 
 For every range, subsampling, component and alternative it finds up to
-`per_case` (default 3) units, a pixel (Y, 4:4:4 chroma), a 2x1 pair
-(4:2:2) or a 2x2 quad (4:2:0), on which the two give different bytes:
+`per_case` (default 3) units, a pixel (Y, 4:4:4 chroma) or a chroma
+block (4:2:2, 4:4:0, 4:2:0, 4:1:1, 4:1:0), on which the two give
+different bytes:
 every one of the 2^24 pixels is evaluated, and pairs and quads are
 completed by a search for the partner that puts the block's sum next
-to a rounding tie. Pixels for Y are packed 1, 2 or 4 to a unit.
+to a rounding tie. Pixels for Y are packed 1, 2, 4 or 16 to a unit.
 `testdata.rgb2yuv_frame` tiles the units into frames. Deterministic
-(seed 10); numpy only; about a minute and 1 GB.
+(seed 10); numpy only; about three minutes and 2 GB.
 """
 
 from __future__ import annotations
@@ -52,11 +59,16 @@ OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                    "libav_tpu_torch", "testdata", "rgb2yuv_samples.json")
 COEFFS = {"Y": (0.299, 0.587, 0.114), "U": (-0.168736, -0.331264, 0.5),
           "V": (0.5, -0.418688, -0.081312)}
-BLOCK = {"444": (1, 1), "422": (1, 2), "420": (2, 2)}   # (rows, cols)
+# (rows, cols) of a chroma block by subsampling
+BLOCK = {"444": (1, 1), "422": (1, 2), "420": (2, 2), "440": (2, 1),
+         "411": (1, 4), "410": (4, 4)}
 PIXEL_ALTS = ("unfused", "swapped", "outer", "final_mul", "old_div",
               "exact_const")
 LIMITED_ONLY = ("final_mul", "old_div", "exact_const")
-ORDER_ALTS = ("pairs", "columns")
+# the other summation orders searched, by subsampling
+SUB_ORDER_ALTS = {"420": ("pairs", "columns"), "410": ("pairs", "columns"),
+                  "411": ("halves", "adjacent")}
+ORDER_ALTS = ("pairs", "columns", "halves", "adjacent")
 
 
 def fma(a, b, c):
@@ -108,27 +120,48 @@ def to_byte(x):
     return np.clip(np.rint(x), 0, 255)
 
 
-def block_mean(vals, order="rows"):
-    """vals: (n, 1 | 2 | 4) float32 block values in row-major order ->
-    the float32 mean as XLA's reduce sums it (rows) or another order."""
-    n = vals.shape[1]
+def block_mean(vals, shape, order="rows"):
+    """vals: (n, rows * cols) float32 block values in row-major order,
+    shape (rows, cols) -> the float32 mean as the port's "rows" sum gives
+    it, or another order."""
+    fh, fw = shape
+    n = fh * fw
     if n == 1:
         return vals[:, 0]
-    if n == 2:
-        return (vals[:, 0] + vals[:, 1]) * F32(0.5)
+
+    def p(i, j):
+        return vals[:, i * fw + j]
     if order == "pairs":
-        s = (vals[:, 0] + vals[:, 1]) + (vals[:, 2] + vals[:, 3])
-    elif order == "columns":
-        s = ((vals[:, 0] + vals[:, 2]) + vals[:, 1]) + vals[:, 3]
+        lanes = []
+        for i in range(fh):
+            s = p(i, 0)
+            for j in range(1, fw):
+                s = s + p(i, j)
+            lanes.append(s)
+        while len(lanes) > 1:
+            half = len(lanes) // 2
+            lanes = [lanes[k] + lanes[k + half] for k in range(half)]
+        s = lanes[0]
+    elif order == "halves":
+        s = (p(0, 0) + p(0, 2)) + (p(0, 1) + p(0, 3))
+    elif order == "adjacent":
+        s = (p(0, 0) + p(0, 1)) + (p(0, 2) + p(0, 3))
     else:
-        s = ((vals[:, 0] + vals[:, 1]) + vals[:, 2]) + vals[:, 3]
-    return s * F32(0.25)
+        s = F32(0)
+        idx = [(i, j) for j in range(fw) for i in range(fh)] \
+            if order == "columns" else \
+            [(i, j) for i in range(fh) for j in range(fw)]
+        for i, j in idx:
+            s = s + p(i, j)
+    return s * F32(1.0 / n)
 
 
-def find_blocks(A, B, n, rng, want, order="rows", tries=6):
-    """Up to `want` blocks of n pixel indices whose byte differs between
-    values A (the port's) and B (an alternative's values; with order,
-    A's values summed in that order)."""
+def find_blocks(A, B, shape, rng, want, order="rows", tries=6):
+    """Up to `want` blocks of shape (rows, cols) pixel indices, row-major,
+    whose byte differs between values A (the port's) and B (an
+    alternative's values; with order, A's values summed in that
+    order)."""
+    n = shape[0] * shape[1]
     found = []
     if n == 1:
         diff = np.flatnonzero(to_byte(A) != to_byte(B))
@@ -140,7 +173,7 @@ def find_blocks(A, B, n, rng, want, order="rows", tries=6):
     sorted_a = A[order_idx]
     lo, hi = float(sorted_a[0]), float(sorted_a[-1])
     moved = np.flatnonzero(A != B) if order == "rows" else None
-    period = 2 if n == 2 else 4         # a tie: sum = period * k + period/2
+    period = n                          # a tie: sum = period * k + period/2
     for _ in range(tries):
         m = 1 << 16
         if moved is not None and len(moved):
@@ -162,9 +195,9 @@ def find_blocks(A, B, n, rng, want, order="rows", tries=6):
         for d in range(-3, 4):
             last = order_idx[np.clip(pos + d, 0, len(sorted_a) - 1)]
             blk = np.concatenate([head, last[:, None]], axis=1)
-            got = block_mean(A[blk])
-            alt = block_mean(A[blk], order) if order != "rows" else \
-                block_mean(B[blk])
+            got = block_mean(A[blk], shape)
+            alt = block_mean(A[blk], shape, order) if order != "rows" \
+                else block_mean(B[blk], shape)
             hit = np.flatnonzero(to_byte(got) != to_byte(alt))
             found.extend(blk[hit][:want - len(found)])
             if len(found) >= want:
@@ -179,6 +212,9 @@ def rgb_of(index):
 
 def search(per_case: int = 3, seed: int = 10):
     rng = np.random.default_rng(seed)
+    # the 4:4:0, 4:1:1 and 4:1:0 searches draw from a stream of their own,
+    # so the other subsamplings' units stay those written before them
+    rng_new = np.random.default_rng(seed + 1)
     out = {}
     for full in (False, True):
         rng_name = "full" if full else "limited"
@@ -191,11 +227,14 @@ def search(per_case: int = 3, seed: int = 10):
                 for sub, (fh, fw) in BLOCK.items():
                     if comp == "Y" and sub != "444":
                         continue        # Y singles serve every layout
-                    n = 1 if comp == "Y" else fh * fw
-                    if alt in ORDER_ALTS and n != 4:
+                    shape = (1, 1) if comp == "Y" else (fh, fw)
+                    if alt in ORDER_ALTS and \
+                            alt not in SUB_ORDER_ALTS.get(sub, ()):
                         continue
                     order = alt if alt in ORDER_ALTS else "rows"
-                    blocks = find_blocks(A, B, n, rng, per_case, order)
+                    blocks = find_blocks(
+                        A, B, shape, rng if sub in ("444", "422", "420")
+                        else rng_new, per_case, order)
                     print(f"{rng_name} {sub} {comp} {alt}: {len(blocks)}",
                           file=sys.stderr)
                     if comp == "Y":
@@ -224,10 +263,10 @@ def main(argv=None) -> int:
     samples = search(per_case)
     with open(OUT, "w") as f:
         json.dump({"note": "written by tools/gen_rgb2yuv_samples.py: RGB "
-                           "blocks (row-major, 1x1 / 1x2 / 2x2 by "
-                           "subsampling) on which the port's RGB -> YUV "
-                           "rounding and the named alternative give "
-                           "different bytes",
+                           "blocks (row-major, 1x1 / 1x2 / 2x1 / 2x2 / "
+                           "1x4 / 4x4 by subsampling) on which the "
+                           "port's RGB -> YUV rounding and the named "
+                           "alternative give different bytes",
                    "samples": samples}, f, separators=(",", ":"))
         f.write("\n")
     print(f"wrote {OUT}", file=sys.stderr)

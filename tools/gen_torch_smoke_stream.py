@@ -47,6 +47,16 @@ package's decoder, and written with its golden into
             the AAC one's s16 PCM itself (zlib), and the JAX CLI's
             framecrc of `-pix_fmt rgb24` on the H.264 and MJPEG streams
             and of `-s 1280x720` on the H.264 stream
+    containers  phase 15's goldens (testdata/containers.py): the md5 of
+            the JAX CLI's -c copy muxes of the H.264, AAC and AC-3
+            streams into MP4, Matroska and MPEG-TS, its framecrc of each
+            (container_{mp4,mkv,ts}.framecrc), its transcode of the
+            Matroska file to MPEG-4 + AAC (packet md5s; the AAC packets
+            themselves in transcode_aac.jax.pkts), and the JAX MP1, MP2,
+            MP3 (also joint stereo), FLAC and AC-3 encoders on the stereo
+            AC-3 stream's first 3 s, decoded (packet md5s and the
+            decoders' PCM md5; the AC-3 packets in encode_ac3.jax.pkts);
+            containers.golden.json (~2 min; needs config5's streams)
 
 The machine with the GPU has no jax, so the port's smoke run reads these
 files instead of encoding. Run from the repository root (no argument
@@ -55,7 +65,7 @@ framecrc, mpeg4 and config5 need the streams written first):
 
     JAX_PLATFORMS=cpu python tools/gen_torch_smoke_stream.py \
         [h264] [mpeg2] [mjpeg] [small] [framecrc] [mpeg4] [mpeg4asp] \
-        [h264ext] [config5]
+        [h264ext] [config5] [containers]
 """
 
 from __future__ import annotations
@@ -223,6 +233,87 @@ def write_config5():
     with open(testdata.config5_golden_path(), "w") as f:
         json.dump(gold, f, indent=1)
         f.write("\n")
+
+
+def vop_types(datas):
+    """vop_coding_type of each MPEG-4 packet, as a letter."""
+    return ["IPBS"[d[d.index(b"\x00\x00\x01\xb6") + 4] >> 6]
+            for d in datas]
+
+
+def write_containers():
+    """Phase 15's goldens (testdata/containers.py): the JAX CLI's muxes,
+    framecrc and transcode, and the JAX audio encoders on the AC-3
+    stream's decoded PCM."""
+    import hashlib
+    import zlib
+    from libav_tpu.avutil.frame import Frame, Packet
+    from libav_tpu.codecs import api
+    from libav_tpu.formats import FormatContext
+    from libav_tpu.tools import avconv
+    from libav_tpu_torch.testdata import containers as C
+
+    def md5(path):
+        with open(path, "rb") as f:
+            return hashlib.md5(f.read()).hexdigest()
+
+    gold = {"mux": {}, "encodes": {}}
+    work = tempfile.mkdtemp()
+    try:
+        C.write_inputs(work)
+
+        def run(*args):
+            if avconv.main(C.in_dir(args, work)) != 0:
+                raise SystemExit(f"avconv {' '.join(args)} failed")
+
+        for out, args in C.MUX:
+            run(*args, out)
+            gold["mux"][out] = md5(os.path.join(work, out))
+        for out, args in C.FRAMECRC.items():
+            crc = os.path.join(work, out + ".framecrc")
+            run("-i", out, *args, "-f", "framecrc", crc)
+            shutil.copyfile(crc, C.framecrc_path(out))
+        pcm = os.path.join(work, "mp4.s16")
+        run("-i", "out.mp4", *C.MP4_PCM, pcm)
+        with open(pcm, "rb") as f, \
+                open(testdata.pcm_golden_path("aac_lc_48k"), "rb") as g:
+            if f.read() != zlib.decompress(g.read()):
+                raise SystemExit("out.mp4's AAC decodes apart from the "
+                                 "ADTS stream's committed PCM")
+        src, args, dst = C.TRANSCODE
+        run("-i", src, *args, dst)
+        dst = os.path.join(work, dst)
+        _, video = C.read_stream(FormatContext, dst, api.MediaType.VIDEO)
+        apar, audio = C.read_stream(FormatContext, dst, api.MediaType.AUDIO)
+        types = vop_types([p.data for p in video])
+        testdata.write_packets(C.JAX_PACKETS["aac"],
+                               [bytes(p.data) for p in audio])
+        gold["transcode"] = {
+            "md5": md5(dst),
+            "video_md5": [C.md5(bytes(p.data)) for p in video],
+            "vop_types": "".join(types),
+            "anchors": sum(t != "B" for t in types),
+            "audio_md5": [C.md5(bytes(p.data)) for p in audio],
+            "audio_extradata": apar.extradata.hex(),
+            "sample_rate": apar.sample_rate, "channels": apar.channels}
+    finally:
+        shutil.rmtree(work)
+    src = C.source_pcm(api, FormatContext, testdata.audio_path(C.SOURCE))
+    gold["source"] = {"samples": src.shape[1], "md5": C.pcm_md5(src)}
+    for run_name, (codec, opts) in C.ENCODES.items():
+        datas = C.encode(api, Frame, codec, opts, src)
+        pcm = C.decode_back(api, Packet, codec, datas)
+        gold["encodes"][run_name] = {
+            "packets": [C.md5(d) for d in datas], "pcm_md5": C.pcm_md5(pcm),
+            "pcm_shape": list(pcm.shape)}
+        print(f"{run_name}: {len(datas)} packets")
+    datas = C.encode(api, Frame, *C.AC3, src)
+    testdata.write_packets(C.JAX_PACKETS["ac3"], datas)
+    gold["ac3"] = {"packets": [C.md5(d) for d in datas]}
+    with open(C.GOLDEN, "w") as f:
+        json.dump(gold, f, indent=1)
+        f.write("\n")
+    print(f"{C.GOLDEN} written")
 
 
 def write_framecrc(name: str, show_frames: bool = False):
@@ -403,8 +494,11 @@ def main(which):
             write_framecrc(name)
     if "config5" in which:
         write_config5()
+    if "containers" in which:
+        write_containers()
 
 
 if __name__ == "__main__":
     main(sys.argv[1:] or ("h264", "mpeg2", "mjpeg", "small", "framecrc",
-                          "mpeg4", "mpeg4asp", "h264ext", "config5"))
+                          "mpeg4", "mpeg4asp", "h264ext", "config5",
+                          "containers"))
