@@ -148,7 +148,28 @@ Phases, in order; any failure exits nonzero and prints no result:
      packet md5-identical to the JAX encoder's and decoded back
      md5-identical to the JAX decoder's, with realtime factors; and to
      AC-3 (MDCT on the card, its calls counted) to the same bar as the
-     AAC packets.
+     AAC packets;
+ 16. the filter path (libav_tpu_torch/filters, testdata.FILTER_RUNS): the
+     port's avconv `-benchmark` on the card with A `-i fld.m2v -vf
+     yadif=1` and the MPEG-4 transcode (md5), B the pixel chain on
+     bench.h264 (crop, hqdn3d, unsharp, boxblur, drawbox, fade, lutyuv,
+     hflip, transpose), C `pad,gradfun,delogo,vflip -pix_fmt rgb24`, D
+     `-filter_complex "[0:v][1:v]overlay=64:64"` with frames.mjpeg as the
+     second input, E `-af volume=0.5,aresample=44100` on the stereo AC-3
+     stream (md5), `-vf interlace` and `-vf fps=12` (on bench.mp4, the
+     bench stream muxed with -c copy, md5-checked): each output identical
+     to the JAX CLI's committed one, K1 once per decoded H.264 frame, K2
+     in A and D, sws_yuv2rgb once per frame in C, each run's fps beside
+     the same run without the filter (phases 9 and 12's runs, or one run
+     here); then every registered video filter, with the tests' option
+     sets, on two decoded 1080p frames of the bench stream (yadif and
+     fieldorder on three of fld.m2v's, lutrgb after format=rgb24, settb
+     on frames without a time base), and the sources at 1080p (movie
+     decoding frames.mjpeg): its
+     output on the card equal to the same torch code's on the CPU, its ms
+     per 1080p frame by CUDA events, and for hqdn3d, gradfun and yadif its
+     kernel launches per frame (cudaLaunchKernel calls under
+     torch.profiler).
 Profiled windows (the kernels' device times, phases 6 and 10's busy
 shares, kernel_probe in phase 7) count the launches of the hand kernel
 they hold against its wrapper's count: torch.profiler on the card loses
@@ -174,6 +195,9 @@ import time
 # stream -> the kernel its `avconv -prof` trace must name
 PROF_KERNELS = {"h264_1080p_ipbb_cabac": "deblock_frame_kernel",
                 "mpeg2_1080p_ipbb": "idct8x8_kernel"}
+# decoded host (Y, U, V) planes kept for phase 16's filter checks:
+# stream name -> the first frames of its warm decode (phases 4 and 6)
+DECODED = {}
 # NVIDIA H100 SXM HBM3, published: bytes per ms (3.35 TB/s)
 HBM_BYTES_PER_MS = 3.35e9
 # written between calls for a cold-L2 time: more than the 50 MB L2
@@ -621,6 +645,7 @@ def phase_decode(dev, card):
     host, warm_s, _ = decode(dev, datas)
     n1, s1 = h264dec.host_entropy_stats()
     check_golden(host, gold, "second decode")
+    DECODED["h264_1080p_ipbb_cabac"] = host[:2]
     fps = nframes / warm_s
     entropy_ms = 1e3 * (s1 - s0) / max(1, n1 - n0)
     log(f"phase 4 warm decode: {fps:.3f} fps ({1e3 * warm_s / nframes:.1f} "
@@ -752,6 +777,7 @@ def phase_mpeg2(dev, card):
 
         host, warm_s, _, entropy_s = decode_mpeg2(dev, datas)
         check_golden(host, gold, f"{name} second decode")
+        DECODED[name] = host[:3]
         fps[name] = nframes / warm_s
         log(f"phase 6 {name} warm decode: {nframes / warm_s:.3f} fps "
             f"({1e3 * warm_s / nframes:.1f} ms/frame), host slice entropy "
@@ -1030,9 +1056,11 @@ def phase_cli(dev, card, direct_fps):
                     f"launches, expected {want}")
             return err, seconds, got[0], got[2]
 
+        cli_fps = {}
         for name in testdata.CLI_INPUTS:
             err, seconds, k1, k2 = framecrc(name, "-benchmark")
-            fps = float(re.search(r"fps=([0-9.]+)", err).group(1))
+            fps = cli_fps[name] = float(re.search(r"fps=([0-9.]+)",
+                                                  err).group(1))
             log(f"phase 9 avconv -benchmark {os.path.basename(inputs[name])}"
                 f" -f framecrc: byte-identical to the JAX CLI's framecrc, "
                 f"{k1} K1 frame and {k2} K2 launches; CLI {fps} fps "
@@ -1074,6 +1102,7 @@ def phase_cli(dev, card, direct_fps):
             f"{seconds:.2f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return cli_fps
 
 
 def phase_mpeg4(dev, card):
@@ -1499,6 +1528,7 @@ def phase_config5(dev, card):
                 raise AssertionError(f"avconv {run}: {launched} sws_yuv2rgb "
                                      f"launches, expected {want}")
             fps = float(re.search(r"fps=([0-9.]+)", err).group(1))
+            r.setdefault("fps", {})[run] = fps
             log(f"phase 12 avconv -benchmark -i {os.path.basename(inp)} "
                 f"{' '.join(args)} -f framecrc: byte-identical to the JAX "
                 f"CLI's, {launched} sws_yuv2rgb launches; {fps} fps "
@@ -1952,6 +1982,276 @@ def phase_containers(dev, card):
     return r
 
 
+# phase 16's card-against-CPU checks: each registered video filter with
+# the option sets of tests/test_torch_filters_video.py, at the 1080p
+# frames' sizes; "fld:" runs on three frames of the MPEG-2 field-picture
+# stream (interlaced, top field first), the others on two of the bench
+# stream's, "rgb:" after a conversion to rgb24, "notb:" on frames without
+# a time base (settb raises on the others, as the JAX filter does);
+# "src:" generates 1080p frames (movie: frames.mjpeg's 4)
+FILTER_CHECKS = [
+    "null", "copy", "fifo", "buffer", "buffersink", "split", "hwmap",
+    "nullsink", "showinfo", "pixdesctest", "hwupload,hwdownload",
+    "fps=12", "setpts=PTS*2+1", "trim=1:2", "select=mod(n\\,2)",
+    "setdar=dar=16/9", "setsar=sar=3/2", "format=yuv444p",
+    "noformat=yuv420p", "scale=1280:720",
+    "crop=1280:720:320:180", "crop=640:360", "pad=1920:1088:0:4",
+    "pad=2000:1200:40:60:16", "transpose=0", "transpose=1", "transpose=2",
+    "transpose=3", "hflip", "vflip", "shuffleplanes=0:2:1",
+    "drawbox=64:64:320:180:red", "drawbox=-2:-3:600:400:0x3366cc",
+    "fade=in:0:3", "fade=out:1:2", "boxblur", "boxblur=2:1",
+    "boxblur=5:2:1:1", "boxblur=0:3", "lut=c0=val*2:c1=negval",
+    "lutyuv=y=negval", "lutyuv=u=clipval:v=gammaval(0.5)", "negate",
+    "unsharp", "unsharp=13:13:1.5", "unsharp=3:5:-1.0:7:3:0.5", "hqdn3d",
+    "hqdn3d=8:6:12:9", "gradfun", "gradfun=3.0:8",
+    "delogo=x=100:y=100:w=200:h=80", "delogo=x=0:y=0:w=100:h=100:show=1",
+    "delogo=x=100:y=100:w=200:h=80:band=1", "interlace", "interlace=bff:0",
+    "blackframe", "blackframe=amount=0:threshold=100", "cropdetect",
+    "cropdetect=limit=100:round=4:reset=2",
+    "split[a][b];[a]crop=256:256:0:0[c];[b][c]overlay=x=640:y=360",
+    "split[a][b];[b]hflip[c];[a][c]framepack=sbs",
+    "split[a][b];[b]hflip[c];[a][c]framepack=tab",
+    "split[a][b];[b]hflip[c];[a][c]framepack=lines",
+    "split[a][b];[b]hflip[c];[a][c]framepack=columns",
+    "split[a][b];[b]negate[c];[a][c]framepack=frameseq",
+    "rgb:lutrgb=r=maxval-val:g=val/2", "rgb:negate", "rgb:hflip",
+    "fld:yadif", "fld:yadif=1", "fld:yadif=2:0", "fld:yadif=3:1",
+    "fld:yadif=0:-1:1", "fld:fieldorder=0", "fld:fieldorder=1",
+    "notb:settb=1/90000", "src:testsrc=size=1920x1080:duration=2",
+    "src:nullsrc=size=1920x1080:duration=2",
+    "src:color=color=orange:size=1920x1080:duration=2",
+    "src:rgbtestsrc=size=1920x1080:duration=2", "src:movie",
+]
+# the host loops and yadif: launches per frame printed
+FILTER_LAUNCHES = ("hqdn3d", "gradfun", "fld:yadif", "fld:yadif=1")
+
+
+def filter_frames(planes, dev, interlaced=False):
+    """Frames (pts 0, 1, ...; time base 1/25) of host (Y, U, V) planes,
+    their planes on dev."""
+    import torch
+    from libav_tpu_torch.avutil.frame import Frame
+    from libav_tpu_torch.avutil.rational import Rational
+    out = []
+    for i, (y, u, v) in enumerate(planes):
+        f = Frame(width=y.shape[1], height=y.shape[0], format="yuv420p",
+                  pts=i, key_frame=i == 0, interlaced_frame=interlaced,
+                  top_field_first=True, time_base=Rational(1, 25))
+        f.planes = [torch.as_tensor(p).to(dev) for p in (y, u, v)]
+        out.append(f)
+    return out
+
+
+def launch_count(fn):
+    """Kernel launches of fn(): the cudaLaunchKernel calls that
+    torch.profiler's CUDA activity records (runtime calls, which it does
+    not lose as it loses device events), and the device kernels it
+    holds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    calls = kernels = 0
+    for e in prof.events():
+        if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                      "cudaLaunchKernelExC"):
+            calls += 1
+        elif e.device_type == DeviceType.CUDA and "Memcpy" not in e.name \
+                and "Memset" not in e.name:
+            kernels += 1
+    return calls, kernels
+
+
+def phase_filter_checks(dev, card):
+    """Every video filter on the card against the same torch code on the
+    CPU, on decoded 1080p frames; its ms per frame on the card."""
+    import torch
+    from libav_tpu_torch import testdata
+    from libav_tpu_torch.avutil.rational import Rational
+    from libav_tpu_torch.filters.graph import FilterGraph, get_filter
+    cpu = torch.device("cpu")
+    work = tempfile.mkdtemp()
+    movie = "filename=" + testdata.write_cli_input(testdata.MJPEG_SMOKE, work)
+    sources = {"": DECODED["h264_1080p_ipbb_cabac"][:2],
+               "fld:": DECODED["mpeg2_1080i_fieldpic"][:3]}
+    rgb = {}
+    for d in (dev, cpu):
+        g = FilterGraph("format=rgb24", device=d)
+        rgb[d.type] = [g.push(f)[0] for f in filter_frames(sources[""], d)]
+
+    def frames(kind, d):
+        if kind == "rgb:":
+            return [f.clone_props() for f in rgb[d.type]]
+        if kind == "src:":
+            return [None, None]          # the count the ms are over
+        out = filter_frames(sources.get(kind, sources[""]), d,
+                            interlaced=kind == "fld:")
+        for f in out:
+            if kind == "notb:":
+                f.time_base = Rational(0, 1)
+        return out
+
+    def run(desc, d, inputs):
+        if inputs[0] is None:            # a source
+            name, _, args = desc.partition("=")
+            return list(get_filter(name)(args or movie, device=d)
+                        .generate())
+        g = FilterGraph(desc, device=d)
+        out = [o for f in inputs for o in g.push(f)]
+        return out + g.push_eof()
+
+    results = {}
+    for check in FILTER_CHECKS:
+        kind = next((k for k in ("fld:", "rgb:", "notb:", "src:")
+                     if check.startswith(k)), "")
+        desc = check[len(kind):]
+        t0 = time.perf_counter()
+        want = run(desc, cpu, frames(kind, cpu))
+        inputs = frames(kind, dev)
+        run(desc, dev, inputs[:1])                   # warm: tables, LUTs
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        got = run(desc, dev, inputs)
+        stop.record()
+        torch.cuda.synchronize()
+        # a source's ms are per frame it generates
+        ms = start.elapsed_time(stop) / (len(got) if kind == "src:"
+                                         else len(inputs))
+        if len(got) != len(want):
+            raise AssertionError(f"filter {check}: {len(got)} frames on the "
+                                 f"card, {len(want)} on the CPU")
+        for k, (g, w) in enumerate(zip(got, want)):
+            if (g.pts, g.width, g.height, g.format) != \
+                    (w.pts, w.width, w.height, w.format) or \
+                    len(g.planes) != len(w.planes):
+                raise AssertionError(f"filter {check}: frame {k}'s "
+                                     f"properties differ")
+            for gp, wp in zip(g.planes, w.planes):
+                gp, wp = torch.as_tensor(gp).cpu(), torch.as_tensor(wp)
+                if gp.shape != wp.shape or not torch.equal(gp, wp):
+                    raise AssertionError(f"filter {check}: frame {k} on "
+                                         f"the card differs from the CPU")
+        line = (f"phase 16 filter {check}: card equal to CPU over "
+                f"{len(want)} frames, {ms:.3f} ms per input 1080p frame")
+        entry = {"ms_per_frame": ms}
+        if check in FILTER_LAUNCHES:
+            calls, kernels = launch_count(lambda: run(desc, dev, inputs))
+            entry["launches_per_frame"] = calls / len(inputs)
+            line += (f", {calls / len(inputs):.0f} launches per input "
+                     f"frame ({kernels} of {calls} kernels held by the "
+                     f"profile)")
+        results[check] = entry
+        log(line + f"; {time.perf_counter() - t0:.1f} s [{card}]")
+    shutil.rmtree(work, ignore_errors=True)
+    return results
+
+
+def phase_filters(dev, card, cli_fps, config5):
+    """Phase 16: the filter path. Runs A-E of testdata.FILTER_RUNS through
+    the port's avconv on the card against the JAX CLI's committed
+    outputs, with K1, K2 and sws_yuv2rgb launch counts and fps beside the
+    same run without filters; then every video filter, card against
+    CPU."""
+    import hashlib
+    from libav_tpu_torch import testdata
+    from libav_tpu_torch.ops import h264deblock as db
+    from libav_tpu_torch.ops import idct
+    from libav_tpu_torch.swscale import yuv2rgb as y2r
+    from libav_tpu_torch.tools import avconv
+    gold = testdata.load_golden(testdata.filters_golden_path())
+    h264_frames = len(testdata.load_golden()["frames"])
+    # the same work without a filter: -> (argv after the inputs, input)
+    plain = {"A_yadif": testdata.MPEG4_CLI_ARGS,
+             "E_fps": ("-f", "framecrc"), "E_af": ("-f", "s16le")}
+    base_fps = {"B_pixel": cli_fps["h264_1080p_ipbb_cabac"],
+                "D_overlay": cli_fps["h264_1080p_ipbb_cabac"],
+                "E_interlace": cli_fps["h264_1080p_ipbb_cabac"],
+                "C_rgb": config5["fps"]["h264_rgb24"]}
+    work = tempfile.mkdtemp()
+    r = {"runs": {}}
+    t_phase = time.perf_counter()
+    try:
+        bench = testdata.write_cli_input("h264_1080p_ipbb_cabac", work)
+        mp4 = os.path.join(work, testdata.FILTER_MP4)
+        run_cli(avconv, ["-i", bench, *testdata.FILTER_MP4_ARGS, mp4], dev)
+        with open(mp4, "rb") as f:
+            if hashlib.md5(f.read()).hexdigest() != gold["mp4"]["md5"]:
+                raise AssertionError("avconv -c copy bench.mp4 differs from "
+                                     "the JAX CLI's")
+        for run, (names, args) in testdata.FILTER_RUNS.items():
+            inputs = [a for path in testdata.filter_inputs(run, work)
+                      for a in ("-i", path)]
+            want = gold["runs"][run]
+            framecrc = "frames" in want
+            out = os.path.join(work, run + ".out")
+            db.h264_deblock_frame.launches = 0
+            idct.idct8x8_int.launches = 0
+            y2r.yuv2rgb.launches = 0
+            _, err, seconds = run_cli(avconv, ["-benchmark", *inputs, *args,
+                                               out], dev)
+            counts = {"K1": db.h264_deblock_frame.launches,
+                      "K2": idct.idct8x8_int.launches,
+                      "sws_yuv2rgb": y2r.yuv2rgb.launches}
+            with open(out, "rb") as f:
+                data = f.read()
+            if framecrc:
+                with open(testdata.filter_run_path(run), "rb") as g:
+                    same = data == g.read()
+            else:
+                same = hashlib.md5(data).hexdigest() == want["md5"]
+            if not same:
+                raise AssertionError(f"filter run {run}: the output differs "
+                                     f"from the JAX CLI's")
+            h264 = "h264_1080p_ipbb_cabac" in names or \
+                testdata.FILTER_MP4 in names
+            if counts["K1"] != (h264_frames if h264 else 0):
+                raise AssertionError(f"filter run {run}: {counts['K1']} K1 "
+                                     f"launches, expected "
+                                     f"{h264_frames if h264 else 0}")
+            if run == "C_rgb" and counts["sws_yuv2rgb"] != want["frames"]:
+                raise AssertionError(f"filter run C: {counts['sws_yuv2rgb']}"
+                                     f" sws_yuv2rgb launches, expected "
+                                     f"{want['frames']}")
+            if run in ("A_yadif", "D_overlay") and not counts["K2"]:
+                raise AssertionError(f"filter run {run}: no K2 launch")
+            entry = {"seconds": seconds, **counts}
+            line = (f"phase 16 run {run}: avconv {' '.join(args)}: "
+                    f"{'framecrc' if framecrc else 'md5'}-identical to the "
+                    f"JAX CLI's; {counts['K1']} K1, {counts['K2']} K2, "
+                    f"{counts['sws_yuv2rgb']} sws_yuv2rgb launches")
+            if run in plain:
+                # the same inputs and output without the filter
+                _, err0, seconds0 = run_cli(
+                    avconv, ["-benchmark", *inputs, *plain[run],
+                             os.path.join(work, run + ".plain")], dev)
+            if run == "E_af":
+                secs = testdata.AUDIO_STREAMS["ac3_20_48k"][1]
+                entry.update(realtime=secs / seconds,
+                             plain_realtime=secs / seconds0)
+                line += (f"; {secs / seconds:.2f}x realtime, "
+                         f"{secs / seconds0:.2f}x without -af")
+            else:
+                fps = bench_frames(err)["fps"]
+                fps0 = bench_frames(err0)["fps"] if run in plain else \
+                    base_fps[run]
+                entry.update(fps=fps, plain_fps=fps0)
+                line += (f"; CLI {fps} fps ({seconds:.2f} s wall), "
+                         f"{fps0} fps without the filter")
+            r["runs"][run] = entry
+            log(line + f" [{card}]")
+        r["cli_s"] = time.perf_counter() - t_phase
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    r["filters"] = phase_filter_checks(dev, card)
+    r["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 16: {r['seconds']:.1f} s ({r['cli_s']:.1f} s of CLI runs)")
+    return r
+
+
 def probe_record(name, source, line, what, probe, l2, library):
     """The kernels-line entry of P1 or P2 from phase 7's results."""
     times = probe["times"]
@@ -2074,8 +2374,8 @@ def main():
     phase_interlace(dev)
     probe = phase_probe(dev, card, lines)
     mjpeg_launches, mjpeg_fps = phase_mjpeg(dev, card)
-    phase_cli(dev, card, {"h264_1080p_ipbb_cabac": h264_fps, **mpeg2_fps,
-                          "mjpeg_1080p": mjpeg_fps})
+    cli_fps = phase_cli(dev, card, {"h264_1080p_ipbb_cabac": h264_fps,
+                                    **mpeg2_fps, "mjpeg_1080p": mjpeg_fps})
     mpeg4 = phase_mpeg4(dev, card)
     phase_transcode(dev, card, mpeg4)
     y2r = phase_config5_kernel(dev, card)
@@ -2083,10 +2383,14 @@ def main():
     m4dec = phase_mpeg4_decode(dev, card, mpeg4)
     ext = phase_h264_ext(dev, card)
     cont = phase_containers(dev, card)
+    filters = phase_filters(dev, card, cli_fps, config5)
+    runs = filters["runs"]
     k2_paths = {"mpeg2 decodes": k2_launches, "mjpeg decode": mjpeg_launches,
                 "mpeg4 encode": mpeg4["launches"],
                 "mpeg4 decode": m4dec["launches"],
-                "mkv to mp4 transcode": cont["transcode"]["k2"]}
+                "mkv to mp4 transcode": cont["transcode"]["k2"],
+                "filter run A_yadif": runs["A_yadif"]["K2"],
+                "filter run D_overlay": runs["D_overlay"]["K2"]}
 
     max_err = max(lines["max_abs_err"], deblock["max_abs_err"])
     k1_49k, p2_49k = probe["l2"]["K1 lines"], probe["l2"]["P2"]
@@ -2098,7 +2402,10 @@ def main():
     frame_entry["launches_by_path"] = {
         "bench decode": launches[0], **ext["launches"],
         "mp4 decode": cont["mp4_decode"]["k1"],
-        "mkv to mp4 transcode": cont["transcode"]["k1"]}
+        "mkv to mp4 transcode": cont["transcode"]["k1"],
+        **{f"filter run {run}": runs[run]["K1"]
+           for run in ("B_pixel", "C_rgb", "D_overlay", "E_interlace",
+                       "E_fps")}}
     frame_entry["field_picture"] = ext["field"]
     record = {"kernels": [
         frame_entry,
@@ -2154,7 +2461,8 @@ def main():
                      "launches_by_path: each path's first run (those "
                      "decodes, the MJPEG decode, the MPEG-4 encode's "
                      "anchors, the MPEG-4 decode of its 7 VOPs, phase "
-                     "15's transcode anchors); in the "
+                     "15's transcode anchors, phase 16's filter runs A "
+                     "and D); in the "
                      "MPEG-4 encode "
                      f"{k2_encode} on the device per launch; "
                      f"at 24,480 (a field): {k2[24480][0]} ms, device "
@@ -2172,6 +2480,9 @@ def main():
             "replaces_is": "an XLA-fused jit (_yuv_rgb_jit), not a Pallas "
                            "kernel",
             "launches": config5["launches"],
+            "launches_by_path": {"config-5 CLI runs": config5["launches"],
+                                 "filter run C_rgb":
+                                     runs["C_rgb"]["sws_yuv2rgb"]},
             "max_abs_err": y2r["max_abs_err"],
             "ms": y2r["limited"]["ms"],
             "plain_ms": y2r["limited"]["plain_ms"],

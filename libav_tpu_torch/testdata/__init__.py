@@ -29,7 +29,8 @@ encoded video is committed. `mpeg4_asp.golden.json` and
 `mpeg4_asp.framecrc` hold the MPEG-4 ASP decode's goldens
 (MPEG4_ASP_RUNS), digests and framecrc text only. The H264_EXT streams
 (weighted prediction, I_PCM, PAFF, MBAFF) come with their goldens, and
-the PAFF one with its framecrc.
+the PAFF one with its framecrc. `filters.golden.json` and
+`filters_<run>.framecrc` hold the JAX CLI's outputs for FILTER_RUNS.
 All files are written by `tools/gen_torch_smoke_stream.py`.
 """
 
@@ -145,6 +146,67 @@ VIDEO_RUNS = {
     "mjpeg_rgb24": (MJPEG_SMOKE, ("-pix_fmt", "rgb24")),
     "h264_s1280x720": ("h264_1080p_ipbb_cabac", ("-s", "1280x720")),
 }
+
+
+# the filter slice: run -> (the committed streams it reads, as CLI inputs
+# in order, and the JAX CLI's arguments after the inputs). The JAX CLI's
+# output on them is filters_<run>.framecrc, or its md5 in
+# filters.golden.json where the output is an encode (A) or PCM (E_af).
+# "bench.mp4" is the bench stream muxed into MP4 with -c copy
+# (FILTER_MP4_ARGS): raw H.264 frames carry no timestamps, and fps needs
+# them. Every video input is a 1080-line stream of the repository.
+FILTER_MP4 = "bench.mp4"
+FILTER_MP4_ARGS = ("-c", "copy")
+FILTER_RUNS = {
+    # 1080i deinterlace at field rate, then the MPEG-4 transcode
+    "A_yadif": (("mpeg2_1080i_fieldpic",),
+                ("-vf", "yadif=1", *MPEG4_CLI_ARGS)),
+    # the pixel filters on the H.264 bench stream
+    "B_pixel": (("h264_1080p_ipbb_cabac",),
+                ("-vf", "crop=1280:720:320:180,hqdn3d,unsharp=5:5:1.0,"
+                        "boxblur=2:1,drawbox=64:64:320:180:red,fade=in:0:4,"
+                        "lutyuv=y=negval,hflip,transpose=1",
+                 "-f", "framecrc")),
+    # a chain that ends in RGB (sws_yuv2rgb)
+    "C_rgb": (("h264_1080p_ipbb_cabac",),
+              ("-vf", "pad=1920:1088:0:4,gradfun,"
+                      "delogo=x=100:y=100:w=200:h=80,vflip",
+               "-pix_fmt", "rgb24", "-f", "framecrc")),
+    # a graph with a second input (the MJPEG stream, decoded up front)
+    "D_overlay": (("h264_1080p_ipbb_cabac", MJPEG_SMOKE),
+                  ("-filter_complex", "[0:v][1:v]overlay=64:64", "-f",
+                   "framecrc")),
+    # an audio chain
+    "E_af": (("ac3_20_48k",),
+             ("-af", "volume=0.5,aresample=44100", "-f", "s16le")),
+    "E_interlace": (("h264_1080p_ipbb_cabac",),
+                    ("-vf", "interlace", "-f", "framecrc")),
+    "E_fps": ((FILTER_MP4,), ("-vf", "fps=12", "-f", "framecrc")),
+}
+
+
+def filter_run_path(run: str) -> str:
+    """The JAX CLI's framecrc of a framecrc run of FILTER_RUNS."""
+    return os.path.join(HERE, "filters_" + run + ".framecrc")
+
+
+def filters_golden_path() -> str:
+    return os.path.join(HERE, "filters.golden.json")
+
+
+def filter_inputs(run: str, directory: str) -> List[str]:
+    """Write a FILTER_RUNS run's inputs into directory; -> the paths for
+    its `-i` options, in order. bench.mp4 must be there already (the
+    CLI's -c copy mux of the bench stream)."""
+    out = []
+    for name in FILTER_RUNS[run][0]:
+        if name == FILTER_MP4:
+            out.append(os.path.join(directory, FILTER_MP4))
+        elif name in AUDIO_STREAMS:
+            out.append(audio_path(name))
+        else:
+            out.append(write_cli_input(name, directory))
+    return out
 
 
 def audio_path(name: str) -> str:

@@ -41,8 +41,18 @@ same device: decoded frames reach it as tensors there, with no trip to
 the host. Any other encoder raises ENCODER_NOT_FOUND naming the
 ROADMAP.md step that ports its device part. `-prof DIR` writes a
 torch.profiler Chrome trace into DIR plus the host timer report (with
-the H.264 decoder's `h264.entropy` span). Filters (`-vf`, `-af`,
-`-filter_complex`) raise PATCHWELCOME naming their step.
+the H.264 decoder's `h264.entropy` span). Filter graphs (`-vf`, `-af`,
+`-filter_complex`, the port's `filters/`) run on the same device: video
+filters as torch programs on the decoded frames where they lie, audio
+filters on the host sample planes; a `-filter_complex` input other than
+the first is decoded up front on that device:
+
+    python -m libav_tpu_torch.tools.avconv -i in.m2v -vf yadif=1
+        -c:v mpeg4 -f m4v out.m4v
+    python -m libav_tpu_torch.tools.avconv -i main.h264 -i logo.h264
+        -filter_complex "[0:v][1:v]overlay=64:64" -f framecrc out.crc
+    python -m libav_tpu_torch.tools.avconv -i in.ac3 -af volume=0.5
+        -f s16le out.raw
 """
 
 from __future__ import annotations
@@ -53,16 +63,13 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 from libav_tpu_torch.avutil import hwdevice, log
-from libav_tpu_torch.avutil.error import AVError, EAGAIN, EOF_, PATCHWELCOME
+from libav_tpu_torch.avutil.error import AVError, EAGAIN, EOF_
 from libav_tpu_torch.avutil.frame import Frame, Packet
 from libav_tpu_torch.avutil.rational import NOPTS_VALUE, Rational, rescale_q
 from libav_tpu_torch.codecs import (CodecParameters, find_decoder, find_encoder)
 from libav_tpu_torch.codecs.api import MediaType
 import libav_tpu_torch.codecs.rawvideo  # noqa: F401 (registration)
 from libav_tpu_torch.formats import FormatContext
-
-REFUSED_FILTERS = ("filters (-vf, -af, -filter_complex) are not ported to "
-                   "libav_tpu_torch yet (ROADMAP.md module queue, step 12)")
 
 
 @dataclass
@@ -389,10 +396,71 @@ _DEFAULT_VCODEC_FOR_FMT = {
 }
 
 
+def _drain_frames(dec):
+    out = []
+    while True:
+        try:
+            out.append(dec.receive_frame())
+        except AVError as e:
+            if e.code in (EAGAIN, EOF_):
+                return out
+            raise
+
+
 def _setup_filter_complex(o: Options, chains, vin):
     """Multi-input complex filtergraph (reference: avconv_filter.c
-    configure_complex_filtergraph): not ported."""
-    raise AVError(PATCHWELCOME, REFUSED_FILTERS)
+    configure_complex_filtergraph, subset): the grammar
+    '[0:v][1:v]filter,chain[out]' binds input 0 as the chain's main
+    feed and later labels to the multi-input filters (overlay) in
+    order. Auxiliary inputs are decoded up front, on the CLI's device,
+    and queued on the filter's secondary port."""
+    import re as _re
+    if vin is None or vin.index not in chains:
+        raise AVError(-22, "filter_complex requires a video stream")
+    spec = o.filter_complex.strip()
+    labels = []
+    while True:
+        m = _re.match(r"\s*\[(\d+)(?::v(?::\d+)?)?\]", spec)
+        if not m:
+            break
+        labels.append(int(m.group(1)))
+        spec = spec[m.end():]
+    spec = _re.sub(r"\[[A-Za-z_0-9]+\]\s*$", "", spec).strip()
+    from libav_tpu_torch.filters.graph import FilterGraph
+    g = FilterGraph(spec, device=o.device)
+    ch = chains[vin.index]
+    ch.graph = g
+    multi = [f for f in g.filters if getattr(f, "N_INPUTS", 1) > 1]
+    sec = labels[1:] if labels else []
+    if len(sec) != len(multi):
+        raise AVError(-22, "filter_complex: secondary input labels must "
+                           "match the multi-input filters")
+    for lab, filt in zip(sec, multi):
+        if lab <= 0 or lab >= len(o.inputs):
+            raise AVError(-22, f"filter_complex: bad input label {lab}")
+        inp = o.inputs[lab]
+        ic2 = FormatContext.open_input(inp["url"],
+                                       inp["opts"].pop("format", None),
+                                       inp["opts"] or None)
+        vs = next((s for s in ic2.streams
+                   if s.codecpar.codec_type == MediaType.VIDEO), None)
+        if vs is None:
+            raise AVError(-22, "auxiliary input has no video stream")
+        dec2 = find_decoder(vs.codecpar.codec_id)(
+            vs.codecpar, device=o.device).open()
+        for pkt in ic2.packets():
+            if pkt.stream_index != vs.index:
+                continue
+            dec2.send_packet(pkt)
+            for fr in _drain_frames(dec2):
+                filt.push_secondary(fr)
+        try:
+            dec2.send_packet(None)
+        except AVError:
+            pass
+        for fr in _drain_frames(dec2):
+            filt.push_secondary(fr)
+        ic2.close()
 
 
 class _GroupView:
@@ -641,7 +709,8 @@ class _VideoChain:
         self.out_par = out_par
         self.graph = None
         if getattr(self.spec, "vf", None):
-            raise AVError(PATCHWELCOME, REFUSED_FILTERS)
+            from libav_tpu_torch.filters.graph import FilterGraph
+            self.graph = FilterGraph(self.spec.vf, device=o.device)
 
     def _ensure_encoder(self, frame: Frame):
         if self.enc is not None or self.copy:
@@ -875,7 +944,8 @@ class _AudioChain(_VideoChain):
         self.enc = None
         self.graph = None
         if getattr(self.spec, "vf", None):
-            raise AVError(PATCHWELCOME, REFUSED_FILTERS)
+            from libav_tpu_torch.filters.graph import FilterGraph
+            self.graph = FilterGraph(self.spec.vf, device=o.device)
 
     def _filter(self, frame: Frame) -> List[Frame]:
         spec = self.spec

@@ -304,3 +304,52 @@ print("ok")
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]
     for name, _ in runs:
         assert (tmp_path / name).read_bytes() == want[name], name
+
+
+def test_sources_cover_the_filter_slice():
+    """The filter graphs' modules are in the scan."""
+    for path in ("filters/__init__.py", "filters/graph.py", "filters/vf.py",
+                 "filters/af.py", "filters/src.py", "ops/yadif.py"):
+        assert "libav_tpu_torch/" + path in SOURCES
+
+
+def test_filter_cli_with_jax_package_refused(inputs, tmp_path):  # noqa: F811
+    """The port's avconv runs -vf (yadif, the pixel filters), -af and
+    -filter_complex in a process where jax and libav_tpu cannot be
+    imported: the JAX CLI's bytes."""
+    from libav_tpu_torch import testdata
+    from tools.gen_torch_smoke_stream import audio_signal, encode_audio
+    ac3 = str(tmp_path / "in.ac3")
+    with open(ac3, "wb") as f:
+        f.write(encode_audio("ac3", audio_signal(0.2, 2, 4),
+                             {"bitrate_kbps": 192}))
+    runs = {"yadif.crc": ["-i", inputs["m2v"], "-vf", "yadif=1", "-f",
+                          "framecrc"],
+            "vf.crc": ["-i", testdata.SMALL_H264, "-vf",
+                       "crop=48:32,hqdn3d,unsharp,gradfun=1.2:8,hflip",
+                       "-f", "framecrc"],
+            "fc.crc": ["-i", testdata.SMALL_H264, "-i", testdata.SMALL_H264,
+                       "-filter_complex", "[0:v][1:v]overlay=8:8", "-f",
+                       "framecrc"],
+            "af.raw": ["-i", ac3, "-af", "volume=0.5,aresample=44100", "-f",
+                       "s16le"]}
+    want = {}
+    for name, argv in runs.items():
+        assert jax_avconv.main(argv + [str(tmp_path / ("jax_" + name))]) == 0
+        want[name] = (tmp_path / ("jax_" + name)).read_bytes()
+    code = IMPORT_GUARD + f"""
+import torch
+torch.set_num_threads(1)
+from libav_tpu_torch.tools import avconv
+for name, argv in {runs!r}.items():
+    assert avconv.main(argv + ["port_" + name], device="cpu") == 0
+loaded = sorted(m for m, v in sys.modules.items() if v is not None
+                and m.split(".")[0] in {REFUSED!r})
+assert loaded == [], loaded
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600, cwd=str(tmp_path))
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]
+    for name in runs:
+        assert (tmp_path / ("port_" + name)).read_bytes() == want[name], name

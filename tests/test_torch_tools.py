@@ -163,7 +163,6 @@ def test_avprobe_raises_device_faults(inputs, monkeypatch):
     (["-c:v", "mpeg2video"], "step 8b"),
     (["-c:v", "prores"], "step 11"),
     (["-c:v", "ffv1"], "step 15"),
-    (["-vf", "yadif"], "step 12"),
 ])
 def test_unported_parts_name_their_step(opts, step, inputs, tmp_path,
                                         capsys):
@@ -173,6 +172,21 @@ def test_unported_parts_name_their_step(opts, step, inputs, tmp_path,
     assert avconv.main(argv, device="cpu") == 1
     err = capsys.readouterr().err
     assert step in err and "libav_tpu_torch" in err
+
+
+def test_avconv_vf_yadif_matches_jax(inputs, tmp_path):
+    """`-vf yadif` (step 12, filters) runs in the port's avconv: the
+    deinterlaced MPEG-2 stream's framecrc equals the JAX CLI's."""
+    out = {}
+    for name, tool, kw in (("jax", jax_avconv, {}),
+                           ("port", avconv, {"device": "cpu"})):
+        dst = str(tmp_path / f"{name}.crc")
+        assert tool.main(["-i", inputs["m2v"], "-vf", "yadif", "-f",
+                          "framecrc", dst], **kw) == 0
+        with open(dst) as f:
+            out[name] = f.read()
+    assert out["port"] == out["jax"]
+    assert out["jax"].count("\n0, ") == 7
 
 
 def test_avconv_mpeg4_transcode_matches_jax(inputs, tmp_path, capsys):

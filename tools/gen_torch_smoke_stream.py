@@ -57,6 +57,13 @@ package's decoder, and written with its golden into
             AC-3 stream's first 3 s, decoded (packet md5s and the
             decoders' PCM md5; the AC-3 packets in encode_ac3.jax.pkts);
             containers.golden.json (~2 min; needs config5's streams)
+    filters the filter slice's runs (testdata.FILTER_RUNS): the JAX CLI
+            with -vf, -af and -filter_complex on the committed streams as
+            CLI input files: filters_<run>.framecrc for the framecrc runs,
+            and filters.golden.json with the md5 of the others (the
+            yadif + MPEG-4 transcode, the -af PCM) and of the -c copy mux
+            of the bench stream into bench.mp4 (~10 min; needs the
+            streams and config5's AC-3 stream)
 
 The machine with the GPU has no jax, so the port's smoke run reads these
 files instead of encoding. Run from the repository root (no argument
@@ -65,7 +72,7 @@ framecrc, mpeg4 and config5 need the streams written first):
 
     JAX_PLATFORMS=cpu python tools/gen_torch_smoke_stream.py \
         [h264] [mpeg2] [mjpeg] [small] [framecrc] [mpeg4] [mpeg4asp] \
-        [h264ext] [config5] [containers]
+        [h264ext] [config5] [containers] [filters]
 """
 
 from __future__ import annotations
@@ -316,6 +323,51 @@ def write_containers():
     print(f"{C.GOLDEN} written")
 
 
+def write_filters():
+    """The JAX CLI's outputs for testdata.FILTER_RUNS: text only."""
+    import hashlib
+    import time
+    from libav_tpu.tools import avconv
+    gold = {"runs": {}}
+    work = tempfile.mkdtemp()
+    try:
+        bench = testdata.write_cli_input("h264_1080p_ipbb_cabac", work)
+        mp4 = os.path.join(work, testdata.FILTER_MP4)
+        if avconv.main(["-i", bench, *testdata.FILTER_MP4_ARGS, mp4]) != 0:
+            raise SystemExit("avconv -c copy to MP4 failed")
+        with open(mp4, "rb") as f:
+            gold["mp4"] = {"args": list(testdata.FILTER_MP4_ARGS),
+                           "md5": hashlib.md5(f.read()).hexdigest()}
+        for run, (names, args) in testdata.FILTER_RUNS.items():
+            argv = [a for path in testdata.filter_inputs(run, work)
+                    for a in ("-i", path)] + list(args)
+            framecrc = "framecrc" in args
+            out = os.path.join(work, run + (".framecrc" if framecrc
+                                            else ".out"))
+            t0 = time.perf_counter()
+            if avconv.main(argv + [out]) != 0:
+                raise SystemExit(f"avconv failed on {run}")
+            seconds = time.perf_counter() - t0
+            entry = {"inputs": list(names), "args": list(args)}
+            if framecrc:
+                shutil.copyfile(out, testdata.filter_run_path(run))
+                with open(out) as f:
+                    entry["frames"] = sum(1 for ln in f
+                                          if ln.startswith("0,"))
+            else:
+                with open(out, "rb") as f:
+                    data = f.read()
+                entry.update(size=len(data),
+                             md5=hashlib.md5(data).hexdigest())
+            gold["runs"][run] = entry
+            print(f"{run}: {entry} ({seconds:.1f} s)")
+    finally:
+        shutil.rmtree(work)
+    with open(testdata.filters_golden_path(), "w") as f:
+        json.dump(gold, f, indent=1)
+        f.write("\n")
+
+
 def write_framecrc(name: str, show_frames: bool = False):
     """The JAX CLI's framecrc of a committed stream as a CLI input [and
     avprobe's -show_frames frame section]."""
@@ -496,9 +548,11 @@ def main(which):
         write_config5()
     if "containers" in which:
         write_containers()
+    if "filters" in which:
+        write_filters()
 
 
 if __name__ == "__main__":
     main(sys.argv[1:] or ("h264", "mpeg2", "mjpeg", "small", "framecrc",
                           "mpeg4", "mpeg4asp", "h264ext", "config5",
-                          "containers"))
+                          "containers", "filters"))
