@@ -30,16 +30,18 @@ Phases, in order; any failure exits nonzero and prints no result:
      (send_packet / receive_frame / drain), holds every frame's adler32
      and md5 against the golden that the JAX package produced, checks
      that the frame deblock kernel ran once per frame and the wave kernel
-     and the line kernel never, then times a warm second decode; then decodes it six more
+     and the line kernel never, then times a warm second decode; then decodes it four more
      times, the deblock in turns through the wave kernel and the frame
-     kernel (wave, frame, frame, wave, wave, frame), each
+     kernel (wave, frame, frame, wave), each
      golden-identical, with the I and P/B frames' recon ms beside each
      other;
-  5. K2: idct8x8_int against the plain idct8x8_int_plain on the card over
-     48,960 blocks (DC-only rows, all-zero blocks, values outside int16,
-     rows whose sums overflow int32), exact; kernel and plain times at
-     48,960 blocks (a 1080-line frame picture) and 24,480 (a field), by
-     CUDA events, and the kernel's device time by torch.profiler;
+  5. K2: idct8x8_int against the plain idct8x8_int_plain on the card
+     (DC-only rows, all-zero blocks, values outside int16, rows whose
+     sums overflow int32), exact, at every block count the main paths
+     give it: 48,960 (a 1080-line frame picture), 24,480 (a field),
+     38,016 (a 16CIF picture) and 21,600 (a 720p picture); kernel and
+     plain times at each by CUDA events, and the kernel's device time
+     by torch.profiler at the first two;
   6. MPEG-2 main path: decodes the two committed 1920x1080 streams (8
      field pictures I/I/P..., 7 frame pictures I/P/B) with the port's
      MPEG2Decoder on the card, holds every frame's adler32 and md5
@@ -169,7 +171,27 @@ Phases, in order; any failure exits nonzero and prints no result:
      output on the card equal to the same torch code's on the CPU, its ms
      per 1080p frame by CUDA events, and for hqdn3d, gradfun and yadif its
      kernel launches per frame (cudaLaunchKernel calls under
-     torch.profiler).
+     torch.profiler);
+ 17. the MPEG-1/2 encoders and the legacy decoders: the pattern's source
+     planes against the golden's adler32 first; the port's MPEG2Encoder
+     on the card encodes the pattern (testdata.pattern, 1920x1080) with
+     each committed MPEG-2 stream's settings, its packets byte-identical
+     to mpeg2_1080p_ipbb.m2vpkts (7) and mpeg2_1080i_fieldpic.m2vpkts (4,
+     8 field pictures); runs M1 (MPEG-1, B-frames, trellis, SATD), M2aq
+     (adaptive quantisation) and M2rc (rate control) md5-identical to
+     the JAX encoders' golden with their anchors' reconstructions; K2
+     once per I/P picture or field picture of each encode; warm encode
+     fps and each stage's ms (search, FDCT + quant, download, host
+     packing, recon), synchronised; the port's avconv `-benchmark -i
+     bench.h264` into out.m2v (`-c:v mpeg2video -q:v 6 -g 8 -bf 2`) and
+     out.ts (`-an`), md5-identical to the JAX CLI's, K1 once per decoded
+     frame and K2 once per anchor; then the committed legacy streams
+     (H.263 16CIF .263; FLV1, MSMPEG4 v3, v2 and WMV1 720p in FLV and
+     AVI) demuxed and decoded on the card, frames identical to the JAX
+     decoders' golden, K2 once per picture, warm fps, the host share
+     (wall time outside Recon.forward on a third, warm pass), and
+     `avconv -benchmark -f framecrc` on each file byte-identical to the
+     JAX CLI's.
 Profiled windows (the kernels' device times, phases 6 and 10's busy
 shares, kernel_probe in phase 7) count the launches of the hand kernel
 they hold against its wrapper's count: torch.profiler on the card loses
@@ -656,7 +678,7 @@ def phase_decode(dev, card):
     # the same decode with the deblock through the wave kernel, in turns:
     # per-frame recon synchronised, the I frame apart
     recon = {"wave": [], "frame": []}
-    for path in ("wave", "frame", "frame", "wave", "wave", "frame"):
+    for path in ("wave", "frame", "frame", "wave"):
         with deblock_path(path):
             host, seconds, per = decode(dev, datas, time_recon=True)
         check_golden(host, gold, f"decode through the {path} kernel")
@@ -679,7 +701,9 @@ def phase_idct(dev):
     from libav_tpu_torch import testdata
     from libav_tpu_torch.ops import idct
     out = {"max_abs_err": 0}
-    for n in (48960, 24480):
+    # 48,960 and 24,480 blocks: a 1080-line frame and field picture;
+    # 38,016 and 21,600: a 16CIF and a 720p picture of the legacy decoders
+    for n in (48960, 24480, 38016, 21600):
         x = torch.as_tensor(testdata.idct_blocks(5, n)).to(dev)
         got = idct.idct8x8_int(x)
         want = idct.idct8x8_int_plain(x)
@@ -689,6 +713,12 @@ def phase_idct(dev):
                                  f"idct8x8_int_plain on {n} blocks")
         out["max_abs_err"] = max(out["max_abs_err"],
                                  int((got - want).abs().max()))
+        if n in (38016, 21600):
+            out[n] = (cuda_ms(lambda: idct.idct8x8_int(x), reps=20),
+                      cuda_ms(lambda: idct.idct8x8_int_plain(x)))
+            log(f"phase 5 K2: {n} blocks exact; kernel {out[n][0]:.4f} ms "
+                f"per call back to back, plain {out[n][1]:.4f} ms")
+            continue
         out[n] = (cuda_ms(lambda: idct.idct8x8_int(x), reps=20),
                   cuda_ms(lambda: idct.idct8x8_int_plain(x)),
                   kernel_device_ms(lambda: idct.idct8x8_int(x),
@@ -2252,6 +2282,254 @@ def phase_filters(dev, card, cli_fps, config5):
     return r
 
 
+def mpeg_picture_count(data: bytes, types=(1, 2)) -> int:
+    """The pictures of picture_coding_type in types (1 I, 2 P, 3 B) in
+    MPEG-1/2 video bytes; by default the I and P pictures, those an
+    encoder reconstructs, one K2 launch each (a field picture counts as
+    one)."""
+    n, i = 0, data.find(b"\x00\x00\x01\x00")
+    while 0 <= i < len(data) - 5:
+        n += ((data[i + 5] >> 3) & 7) in types
+        i = data.find(b"\x00\x00\x01\x00", i + 4)
+    return n
+
+
+def demux_file(path):
+    """(codec parameters of stream 0, its packets' bytes) of a file,
+    through the port's demuxer."""
+    from libav_tpu_torch.avutil.error import AVError
+    from libav_tpu_torch.formats.api import FormatContext
+    ic = FormatContext.open_input(path)
+    datas = []
+    try:
+        while True:
+            try:
+                pkt = ic.read_frame()
+            except AVError:
+                break
+            if pkt.stream_index == 0:
+                datas.append(bytes(pkt.data))
+        return ic.streams[0].codecpar, datas
+    finally:
+        ic.close()
+
+
+def decode_legacy(dev, par, datas, timed=False):
+    """Decode a legacy stream (H.263, FLV1, MSMPEG4) with the port's
+    decoder on dev: (host (Y, U, V) per frame, seconds, K2 launches, the
+    synchronised ms of each picture's Recon module if timed)."""
+    import torch
+    from libav_tpu_torch.avutil.frame import Packet
+    from libav_tpu_torch.codecs import mpegvideo
+    from libav_tpu_torch.codecs.api import find_decoder
+    from libav_tpu_torch.ops import idct
+    recon_ms = []
+    forward = mpegvideo.Recon.forward
+
+    def timed_forward(*args, **kw):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = forward(*args, **kw)
+        torch.cuda.synchronize(dev)
+        recon_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+    if timed:
+        mpegvideo.Recon.forward = timed_forward
+    idct.idct8x8_int.launches = 0
+    dec = find_decoder(par.codec_id)(par, device=dev)
+    try:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        frames = dec.decode_all(Packet(data=d, pts=i)
+                                for i, d in enumerate(datas))
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+    finally:
+        dec.close()
+        mpegvideo.Recon.forward = forward
+    launches = idct.idct8x8_int.launches
+    if not all(p.device == dev for f in frames for p in f.planes):
+        raise AssertionError(f"{par.codec_id}: frames not on the card")
+    return [f.to_host().planes for f in frames], seconds, launches, recon_ms
+
+
+def phase_mpeg12(dev, card):
+    """Phase 17: the MPEG-1/2 encoders on the card (the committed MPEG-2
+    streams re-encoded from the pattern byte for byte, runs M1, M2aq and
+    M2rc against the JAX encoders' golden, K2 once per reconstructed
+    anchor or field picture, warm fps and stage ms, the CLI's .m2v and
+    .ts outputs against the JAX CLI's md5) and the legacy decoders
+    (H.263, FLV1, MSMPEG4 v3/v2, WMV1 streams against the JAX decoders'
+    digests, K2 once per picture, fps and host share, the CLI's framecrc
+    against the JAX CLI's)."""
+    import hashlib
+    from libav_tpu_torch import testdata
+    from libav_tpu_torch.ops import h264deblock, idct
+    from libav_tpu_torch.tools import avconv
+    from libav_tpu_torch.tools import encode_probe as ep
+    t_phase = time.perf_counter()
+    gold = testdata.load_golden(testdata.mpeg12_golden_path())
+    n, width, height = gold["frames"], gold["width"], gold["height"]
+    for t, want in enumerate(gold["source"]):
+        got = testdata.plane_adler32(testdata.pattern(width, height, t))
+        if got != want:
+            raise AssertionError(f"the pattern's frame {t} planes {got} "
+                                 f"differ from the golden's source {want}:"
+                                 f" numpy's sin/cos differ here")
+    frames = ep.pattern_frames(dev, width, height, n)
+    k2 = {}
+
+    def encode(tag, codec, settings, nframes, anchors=None):
+        idct.idct8x8_int.launches = 0
+        datas, seconds = ep.encode(dev, frames[:nframes], settings,
+                                   anchors, codec=codec)
+        k2[tag] = idct.idct8x8_int.launches
+        want = mpeg_picture_count(b"".join(datas))
+        if k2[tag] != want:
+            raise AssertionError(f"{tag}: {k2[tag]} K2 launches, {want} "
+                                 f"anchors or field pictures coded")
+        return datas, seconds
+
+    for name, (nf, settings) in testdata.MPEG2_STREAMS.items():
+        if gold["streams"][name] != settings:
+            raise AssertionError(f"{name}: settings differ from the golden")
+        want = testdata.read_packets(testdata.stream_paths(name)[0])
+        got, seconds = encode(f"mpeg2 encode {name}", "mpeg2video",
+                              settings, nf)
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g != w:
+                raise AssertionError(f"{name}: packet {i} differs from the "
+                                     f"committed stream's")
+        if len(got) != len(want):
+            raise AssertionError(f"{name}: {len(got)} packets, the stream "
+                                 f"has {len(want)}")
+        log(f"phase 17 MPEG-2 encode of {nf} pattern frames {settings}: "
+            f"{len(got)} packets ({sum(map(len, got))} bytes) byte-identical"
+            f" to {name}.m2vpkts (the JAX encoder's), "
+            f"{k2['mpeg2 encode ' + name]} K2 launches, {seconds:.2f} s")
+
+    for run, want in gold["runs"].items():
+        codec, settings = testdata.MPEG12_RUNS[run]
+        if (codec, settings) != (want["codec"], want["settings"]):
+            raise AssertionError(f"run {run}: settings differ from the "
+                                 f"golden's")
+        anchors = []
+        got, seconds = encode(f"run {run}", codec, settings, n, anchors)
+        if ep.packet_digests(got) != want["packets"]:
+            raise AssertionError(f"run {run}: packets differ from the JAX "
+                                 f"encoder's golden")
+        if testdata.digest(anchors)["frames"] != want["anchors"]:
+            raise AssertionError(f"run {run}: anchors differ from the JAX "
+                                 f"encoder's golden")
+        log(f"phase 17 run {run} ({codec} {settings}): {len(got)} packets "
+            f"({sum(map(len, got))} bytes) md5-identical to the JAX "
+            f"encoder's, {len(anchors)} anchors adler32-identical, "
+            f"{k2['run ' + run]} K2 launches, {seconds:.2f} s")
+
+    fps = {}
+    for name, (nf, settings) in testdata.MPEG2_STREAMS.items():
+        _, seconds = ep.encode(dev, frames[:nf], settings,
+                               codec="mpeg2video")
+        fps[name] = nf / seconds
+    name = "mpeg2_1080p_ipbb"
+    nf, settings = testdata.MPEG2_STREAMS[name]
+    with ep.stages(dev, "mpeg2video") as stages:
+        _, staged_s = ep.encode(dev, frames[:nf], settings,
+                                codec="mpeg2video")
+    log(f"phase 17 warm MPEG-2 encode: {name} {fps[name]:.3f} fps "
+        f"({1e3 / fps[name]:.1f} ms/frame), mpeg2_1080i_fieldpic "
+        f"{fps['mpeg2_1080i_fieldpic']:.3f} fps [{card}]")
+    log(f"phase 17 stages of the {name} encode (synchronised, ms per call, "
+        f"{staged_s:.2f} s pass):")
+    for label, ms in stages.items():
+        log(f"phase 17   {label}: {', '.join(f'{x:.2f}' for x in ms)} "
+            f"(sum {sum(ms):.1f})")
+
+    cli_fps = {}
+    work = tempfile.mkdtemp()
+    try:
+        src = testdata.write_cli_input("h264_1080p_ipbb_cabac", work)
+        for out, args in testdata.MPEG12_CLI.items():
+            dst = os.path.join(work, out)
+            idct.idct8x8_int.launches = 0
+            h264deblock.h264_deblock_frame.launches = 0
+            _, err, seconds = run_cli(avconv, ["-benchmark", "-i", src,
+                                               *args, dst], dev)
+            k2[f"cli {out}"] = idct.idct8x8_int.launches
+            k1 = h264deblock.h264_deblock_frame.launches
+            with open(dst, "rb") as f:
+                data = f.read()
+            if hashlib.md5(data).hexdigest() != gold["cli"][out]["md5"]:
+                raise AssertionError(f"avconv {' '.join(args)} {out}: the "
+                                     f"output differs from the JAX CLI's")
+            video = data if out.endswith(".m2v") else \
+                b"".join(demux_file(dst)[1])
+            frames_in = mpeg_picture_count(video, (1, 2, 3))
+            if k2[f"cli {out}"] != mpeg_picture_count(video) or \
+                    k1 != frames_in:
+                raise AssertionError(f"avconv {out}: {k2['cli ' + out]} K2 "
+                                     f"and {k1} K1 launches")
+            cli_fps[out] = float(re.search(r"fps=([0-9.]+)", err).group(1))
+            log(f"phase 17 avconv -benchmark -i bench.h264 {' '.join(args)} "
+                f"{out}: {len(data)} bytes md5-identical to the JAX CLI's, "
+                f"{k1} K1 and {k2['cli ' + out]} K2 launches; CLI "
+                f"{cli_fps[out]} fps ({seconds:.2f} s wall) [{card}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    legacy = testdata.load_golden(testdata.legacy_golden_path())
+    dec_fps = {}
+    for name, (fname, codec, w, h, npic) in testdata.LEGACY.items():
+        path, framecrc = testdata.legacy_paths(name)
+        par, datas = demux_file(path)
+        if par.codec_id != codec or len(datas) != npic:
+            raise AssertionError(f"{fname}: {par.codec_id}, {len(datas)} "
+                                 f"packets")
+        host, first_s, launches, _ = decode_legacy(dev, par, datas)
+        check_golden(host, legacy[name], f"{name} decode")
+        if launches != npic:
+            raise AssertionError(f"{name}: {launches} K2 launches, "
+                                 f"expected {npic}")
+        k2[f"{name} decode"] = launches
+        host, warm_s, _, _ = decode_legacy(dev, par, datas)
+        check_golden(host, legacy[name], f"{name} warm decode")
+        dec_fps[name] = npic / warm_s
+        # a third, warm pass with each Recon.forward synchronised: the
+        # share of its wall time spent outside the Recon module
+        host, timed_s, _, recon_ms = decode_legacy(dev, par, datas, True)
+        check_golden(host, legacy[name], f"{name} timed decode")
+        share = 100 * (1 - sum(recon_ms) / (1e3 * timed_s))
+        work = tempfile.mkdtemp()
+        try:
+            out = os.path.join(work, "out.framecrc")
+            idct.idct8x8_int.launches = 0
+            _, err, seconds = run_cli(avconv, ["-benchmark", "-i", path,
+                                               "-f", "framecrc", out], dev)
+            cli_launches = idct.idct8x8_int.launches
+            with open(out, "rb") as f, open(framecrc, "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"avconv -i {fname}: framecrc "
+                                         f"differs from the JAX CLI's")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        if cli_launches != npic:
+            raise AssertionError(f"avconv -i {fname}: {cli_launches} K2 "
+                                 f"launches")
+        log(f"phase 17 {codec} decode of {fname} ({w}x{h}, {npic} pictures,"
+            f" {os.path.getsize(path)} bytes): frames identical to the JAX "
+            f"decoder's golden, {launches} K2 launches; warm "
+            f"{dec_fps[name]:.3f} fps; first pass {first_s:.2f} s; warm "
+            f"timed pass {timed_s:.2f} s, recon module ms "
+            f"{', '.join(f'{x:.2f}' for x in recon_ms)}, host share "
+            f"{share:.1f}% outside Recon.forward; avconv -benchmark -f framecrc "
+            f"byte-identical to the JAX CLI's, {cli_launches} K2 launches, "
+            f"{float(re.search(r'fps=([0-9.]+)', err).group(1))} fps "
+            f"[{card}]")
+    log(f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return {"k2": k2, "encode_fps": fps, "cli_fps": cli_fps,
+            "decode_fps": dec_fps}
+
+
 def probe_record(name, source, line, what, probe, l2, library):
     """The kernels-line entry of P1 or P2 from phase 7's results."""
     times = probe["times"]
@@ -2384,13 +2662,15 @@ def main():
     ext = phase_h264_ext(dev, card)
     cont = phase_containers(dev, card)
     filters = phase_filters(dev, card, cli_fps, config5)
+    mpeg12 = phase_mpeg12(dev, card)
     runs = filters["runs"]
     k2_paths = {"mpeg2 decodes": k2_launches, "mjpeg decode": mjpeg_launches,
                 "mpeg4 encode": mpeg4["launches"],
                 "mpeg4 decode": m4dec["launches"],
                 "mkv to mp4 transcode": cont["transcode"]["k2"],
                 "filter run A_yadif": runs["A_yadif"]["K2"],
-                "filter run D_overlay": runs["D_overlay"]["K2"]}
+                "filter run D_overlay": runs["D_overlay"]["K2"],
+                **mpeg12["k2"]}
 
     max_err = max(lines["max_abs_err"], deblock["max_abs_err"])
     k1_49k, p2_49k = probe["l2"]["K1 lines"], probe["l2"]["P2"]
@@ -2462,11 +2742,16 @@ def main():
                      "decodes, the MJPEG decode, the MPEG-4 encode's "
                      "anchors, the MPEG-4 decode of its 7 VOPs, phase "
                      "15's transcode anchors, phase 16's filter runs A "
-                     "and D); in the "
+                     "and D, phase 17's MPEG-1/2 encodes' anchors and "
+                     "field pictures, its CLI encodes and its legacy "
+                     "decodes, one per picture); in the "
                      "MPEG-4 encode "
                      f"{k2_encode} on the device per launch; "
                      f"at 24,480 (a field): {k2[24480][0]} ms, device "
-                     f"{k2[24480][2]} ms, plain {k2[24480][1]} ms",
+                     f"{k2[24480][2]} ms, plain {k2[24480][1]} ms; at "
+                     f"38,016 (16CIF): {k2[38016][0]} ms, plain "
+                     f"{k2[38016][1]} ms; at 21,600 (720p): "
+                     f"{k2[21600][0]} ms, plain {k2[21600][1]} ms",
         },
         probe_record("mpv_idct8x8_cm", "mpv_idct.cu", 30,
                      "48,896 blocks as (64, B)", probe["idct"],

@@ -70,15 +70,13 @@ _ENCODERS: Dict[str, Type["Encoder"]] = {}
 
 # codec id -> the ROADMAP.md module-queue step that ports its decoder
 NOT_PORTED = {
-    **dict.fromkeys(("h263", "flv1", "msmpeg4", "msmpeg4v2",
-                     "msmpeg4v3", "msmpeg4v4", "wmv1"), "8b"),
     "prores": "11",
     "ffv1": "15",
 }
 
 # encoder id -> the ROADMAP.md module-queue step that ports its device part
 ENCODER_STEPS = {
-    "h264": "7", "mpeg1video": "8b", "mpeg2video": "8b", "mjpeg": "9",
+    "h264": "7", "mjpeg": "9",
     "prores": "11", "ffv1": "15",
 }
 

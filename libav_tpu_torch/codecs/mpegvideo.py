@@ -1,16 +1,19 @@
 """mpegvideo device programs: MPEG-1/2, H.263 and MPEG-4 reconstruction,
-and the MPEG-4 encoder's picture programs (counterpart of
+and the MPEG-1/2 and MPEG-4 encoders' picture programs (counterpart of
 `libav_tpu/codecs/mpegvideo.py` recon_jit, recon_field_jit,
-fields_of_frame_jit, weave_fields_jit, zero_pad_refs, encode_jit and
-encode_b_h263_jit, and of `libav_tpu/codecs/mpeg4/enc.py`
-_gmc_resid_jit; reference: mpegvideo.c ff_mpv_decode_mb,
-mpegvideo_motion.c and the device half of mpegvideo_enc.c).
+fields_of_frame_jit, weave_fields_jit, zero_pad_refs, encode_jit,
+encode_b_jit, encode_field_stress_jit and encode_b_h263_jit, and of
+`libav_tpu/codecs/mpeg4/enc.py` _gmc_resid_jit; reference: mpegvideo.c
+ff_mpv_decode_mb, mpegvideo_motion.c and the device half of
+mpegvideo_enc.c).
 
 One program per coded picture, the JAX package's stages:
   1. residual: dequant (MPEG-1, MPEG-2, H.263 with the MPEG-4 DC scaler,
-     or the MPEG-4 matrix quantiser with its parity fix; intra/inter per
-     MB), the inverse scan, MPEG-2 mismatch control, and the 8x8 IDCT of
-     every block of the picture in one launch of kernel K2 (ops/idct.py);
+     H.263 with the short header's fixed DC scaler 8 ('h263sh') or
+     WMV1's DC scale tables ('wmv1'), or the MPEG-4 matrix quantiser with
+     its parity fix; intra/inter per MB), the inverse scan, MPEG-2
+     mismatch control, and the 8x8 IDCT of every block of the picture in
+     one launch of kernel K2 (ops/idct.py);
   2. prediction: half-pel or MPEG-4 quarter-sample MC of luma and chroma
      from one or two references, 8x8 vectors where a macroblock has four
      (4MV, B direct), combined per MB (forward, backward or averaged);
@@ -19,12 +22,14 @@ One program per coded picture, the JAX package's stages:
   3. assembly: prediction + residual, clamped, laid out as planes, and
      the edge-padded planes the next picture predicts from.
 
-The encoder's programs (`Encode`, `EncodeB`, `GMCResidual`) run motion
-search (ops/me.py), prediction, the residual, the forward DCT
-(ops/fdct.py) and the H.263 or MPEG matrix quantiser for every macroblock
-at once, with the SAD or the Hadamard (SATD, ops/mecmp.py) intra/inter
-decision; the encoder then reconstructs its anchors through `Recon`, the
-decoder's program, so the prediction loop is closed through K2.
+The encoder's programs (`Encode`, `EncodeB`, `EncodeBMpeg`,
+`EncodeFieldStress`, `GMCResidual`) run motion search (ops/me.py; bounded
+to the picture for MPEG-1/2), prediction, the residual, the forward DCT
+(ops/fdct.py) and the H.263, MPEG-4 matrix or MPEG-1/2 quantiser for
+every macroblock at once, with the SAD or the Hadamard (SATD,
+ops/mecmp.py) intra/inter decision; the encoders then reconstruct their
+anchors through `Recon` or `ReconField`, the decoder's programs, so the
+prediction loop is closed through K2.
 
 Each program is an nn.Module whose per-geometry constants (inverse scan,
 macroblock origins) are registered buffers, built by an lru_cached
@@ -32,10 +37,6 @@ factory with the JAX factory's key plus the device. Where the JAX
 program picks between two reference fields with `where` over two MCs,
 this one gathers from the stacked pair with a per-block index: the same
 pixels, half the work.
-
-Not ported (ROADMAP.md step 8b): the H.263 short-header and WMV1
-quantisers ('h263sh', 'wmv1'), which `Recon` refuses with
-NotImplementedError, and the MPEG-1/2 encoders' programs.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from libav_tpu_torch.codecs import msmpeg4_tables
 from libav_tpu_torch.ops.quant import alternate_scan, zigzag_scan
 from libav_tpu_torch.ops import quant as quant_ops
 from libav_tpu_torch.ops.fdct import fdct8x8_int
@@ -62,12 +64,8 @@ from libav_tpu_torch.ops.mecmp import satd16_of
 # the H.263/MPEG-4 family's quantiser kinds; they derive chroma vectors
 # with the rounding rule (motion_est.h:96), not MPEG-1/2 truncation
 H263_KINDS = ("h263", "h263sh", "wmv1", "mpeg4", "mpeg4mq")
-
-
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to libav_tpu_torch yet (ROADMAP.md: module "
-        f"queue, step 8b)")
+MPEG12_KINDS = ("mpeg1", "mpeg2")
+RECON_KINDS = MPEG12_KINDS + H263_KINDS
 
 
 def _combine(pf, pb, use_fwd, use_bwd):
@@ -108,6 +106,23 @@ class _Picture(nn.Module):
         for name, a in (("x16", mbx * 16), ("y16", mby * 16),
                         ("x8", mbx * 8), ("y8", mby * 8), ("y4", mby * 4)):
             self.register_buffer(name, torch.as_tensor(a.astype(np.int32)))
+        if quant_kind == "wmv1":
+            # WMV1 / msmpeg4 v4 DC scale tables (msmpeg4data.c), by qscale
+            for name in ("WMV1_Y_DC_SCALE", "WMV1_C_DC_SCALE"):
+                self.register_buffer(name.lower(), torch.as_tensor(
+                    np.array(getattr(msmpeg4_tables, name), np.int32)))
+
+    def dc_scale(self, qs: torch.Tensor) -> torch.Tensor:
+        """Per-block intra DC scaler of the H.263 family's kinds: the
+        MPEG-4 table, 8 for the H.263 short header (INTRADC is an 8-bit
+        FLC), or WMV1's tables indexed by clip(qscale, 0, 31)."""
+        if self.quant_kind == "h263sh":
+            return torch.full_like(qs, 8)
+        if self.quant_kind == "wmv1":
+            q = qs.clamp(0, 31).long()
+            return torch.where(self.luma_blk, self.wmv1_y_dc_scale[q],
+                               self.wmv1_c_dc_scale[q])
+        return quant_ops.dc_scaler(qs, self.luma_blk)
 
     def residual(self, coeffs, qscale, intra, intra_q, inter_q):
         """(nmb, 6, 64) scan-order levels -> (nmb, 6, 8, 8) int32."""
@@ -123,8 +138,8 @@ class _Picture(nn.Module):
             dcs = quant_ops.dc_scaler(qs, self.luma_blk)
             deq_i = quant_ops.mpeg4_mq_dequant_intra(c, qs, intra_q, dcs)
             deq_p = quant_ops.mpeg4_mq_dequant_inter(c, qs, inter_q)
-        elif self.quant_kind in ("h263", "mpeg4"):
-            dcs = quant_ops.dc_scaler(qs, self.luma_blk)
+        elif self.quant_kind in ("h263", "h263sh", "wmv1", "mpeg4"):
+            dcs = self.dc_scale(qs)
             deq_i = quant_ops.h263_dequant(c, qs, dcs, True)
             deq_p = quant_ops.h263_dequant(c, qs, dcs, False)
         else:
@@ -186,8 +201,8 @@ class Recon(_Picture):
                  alt_scan: bool, inter_frame: bool, rounding: int = 0,
                  interlaced: bool = False, qpel: bool = False,
                  dual: bool = False, any_4mv: bool = False):
-        if quant_kind not in ("mpeg1", "mpeg2", "h263", "mpeg4", "mpeg4mq"):
-            raise _unported(f"the {quant_kind!r} quantiser")
+        if quant_kind not in RECON_KINDS:
+            raise ValueError(f"no recon quantiser {quant_kind!r}")
         super().__init__(mb_w, mb_h, alt_scan, quant_kind)
         self.inter_frame, self.rounding = inter_frame, rounding
         self.interlaced, self.dual = interlaced, dual
@@ -344,18 +359,20 @@ class ReconField(_Picture):
 class _EncodePicture(_Picture):
     """Shared stages of the encoder's picture programs over mb_w x mb_h
     macroblocks: the source and prediction as (nmb, 6, 8, 8) blocks,
-    the motion search against one reference, FDCT, and the quantisers of
-    MPEG-4 quant_type 0 ('h263') and 1 ('mpeg4mq')."""
+    the motion search against one reference (bounded to the picture for
+    the MPEG-1/2 kinds), FDCT, and the quantisers of MPEG-4 quant_type 0
+    ('h263') and 1 ('mpeg4mq') and of MPEG-1 and MPEG-2."""
 
     def __init__(self, mb_w: int, mb_h: int, search_range: int,
                  quant_kind: str = "h263"):
-        if quant_kind not in ("h263", "mpeg4mq"):
-            raise ValueError(f"no MPEG-4 encoder quantiser {quant_kind!r}")
+        if quant_kind not in ("h263", "mpeg4mq") + MPEG12_KINDS:
+            raise ValueError(f"no encoder quantiser {quant_kind!r}")
         super().__init__(mb_w, mb_h, False, quant_kind)
         self.register_buffer("zz", torch.as_tensor(
             zigzag_scan().astype(np.int64)))
-        self.fullpel = FullPelSearch(mb_w, mb_h, search_range)
-        self.refine = HpelRefine(mb_w, mb_h)
+        bounded = quant_kind in MPEG12_KINDS
+        self.fullpel = FullPelSearch(mb_w, mb_h, search_range, bounded)
+        self.refine = HpelRefine(mb_w, mb_h, bounded)
 
     def mbs(self, plane: torch.Tensor, s: int) -> torch.Tensor:
         """(mb_h * s, mb_w * s) plane -> (nmb, s, s) int32."""
@@ -384,11 +401,14 @@ class _EncodePicture(_Picture):
                  inter_qmat_zz=None):
         """(nmb, 6, 8, 8) int32 -> (FDCT coefficients (n6, 64) raster,
         the same in zigzag order, levels (n6, 64) zigzag). 'h263':
-        sign(c) (|c| // 16 q), clipped to +-255. 'mpeg4mq': the matrix
-        steps q M in zigzag order, rounded for intra blocks (the (nmb,)
-        flags intra) and truncated for inter ones, clipped to +-2047. (The
-        JAX B program floors its steps at 1, which never binds: q >= 1
-        and every matrix entry is >= 1, a 0 ending the VOL's list.)"""
+        sign(c) (|c| // 16 q), clipped to +-255. The matrix kinds: the
+        steps q M in zigzag order ('mpeg2': max(q M // 2, 1), its dequant
+        carrying one more fractional bit), rounded for intra blocks (the
+        (nmb,) flags intra; None: all inter) and truncated for inter
+        ones, clipped to +-255 ('mpeg1') or +-2047 ('mpeg4mq', 'mpeg2').
+        (The JAX MPEG-4 B program floors its steps at 1, which never
+        binds: q >= 1 and every matrix entry is >= 1, a 0 ending the
+        VOL's list.)"""
         coeffs8 = fdct8x8_int(src.reshape(self.nmb * 6, 8, 8)) \
             .reshape(self.nmb * 6, 64)
         czz = coeffs8[:, self.zz]
@@ -397,30 +417,36 @@ class _EncodePicture(_Picture):
             levels = (torch.sign(czz) * (czz.abs() // (16 * qs6))) \
                 .clamp(-255, 255)
             return coeffs8, czz, levels
-        # MPEG-4 quant_type 1: the >>3 / >>4 scale of the mpeg4_mq
-        # dequant pair, which these steps invert
-        qi = qs6 * intra_qmat_zz.to(torch.int32)[None, :]
-        qp = qs6 * inter_qmat_zz.to(torch.int32)[None, :]
-        lv_i = torch.sign(czz) * ((czz.abs() + qi // 2) // qi)
-        lv_p = torch.sign(czz) * (czz.abs() // qp)
-        if intra is None:
-            lv = lv_p
-        else:
-            lv = torch.where(intra.repeat_interleave(6)[:, None], lv_i, lv_p)
-        return coeffs8, czz, lv.clamp(-2047, 2047)
+        # MPEG-4 quant_type 1 and MPEG-1: the >>3 / >>4 scale of their
+        # dequant pairs, which these steps invert
+        def steps(qmat_zz):
+            q = qs6 * qmat_zz.to(torch.int32)[None, :]
+            return (q // 2).clamp(min=1) if self.quant_kind == "mpeg2" else q
+        qp = steps(inter_qmat_zz)
+        lv = torch.sign(czz) * (czz.abs() // qp)
+        if intra is not None:
+            qi = steps(intra_qmat_zz)
+            lv_i = torch.sign(czz) * ((czz.abs() + qi // 2) // qi)
+            lv = torch.where(intra.repeat_interleave(6)[:, None], lv_i, lv)
+        lim = 255 if self.quant_kind == "mpeg1" else 2047
+        return coeffs8, czz, lv.clamp(-lim, lim)
 
 
 class Encode(_EncodePicture):
     """I or P picture encode, the JAX encode_jit program for the MPEG-4
-    kinds 'h263' (quant_type 0) and 'mpeg4mq' (quant_type 1, the
-    matrices in zigzag order): pixels (+ reference) -> levels (nmb, 6,
-    64) in zigzag order, half-pel vectors and intra decisions. With
+    kinds 'h263' (quant_type 0) and 'mpeg4mq' (quant_type 1) and the
+    MPEG-1/2 kinds 'mpeg1' and 'mpeg2' (the matrices in zigzag order):
+    pixels (+ reference) -> levels (nmb, 6, 64) in zigzag order, half-pel
+    vectors and intra decisions. The MPEG-1/2 kinds search inside the
+    picture only. With
     mbcmp 'sad' a P macroblock goes intra when its SAD about its mean,
     plus 256, is below its best inter SAD; with 'satd' the same test on
     16x16 Hadamard costs (the mean difference truncated to integers, as
     the JAX program's float32 mean and int32 cast do). The residual's
     chroma prediction uses MPEG-1/2 chroma vectors, as the JAX program's
-    does. Intra DC levels are rounded by the DC scaler."""
+    does. Intra DC levels: the MPEG-4 kinds round by the DC scaler; the
+    MPEG-1/2 kinds carry the DC in pixels, clip((dc8 + 32) >> 6, 0,
+    255), times 8 for 'mpeg2' (IDCT units at intra_dc_precision 0)."""
 
     def __init__(self, mb_w: int, mb_h: int, inter: bool,
                  search_range: int = 15, want_coeffs: bool = False,
@@ -463,11 +489,17 @@ class Encode(_EncodePicture):
             src = blocks
         coeffs8, czz, levels = self.quantize(src, qscale, use_intra,
                                              intra_qmat_zz, inter_qmat_zz)
-        # intra DC by the DC scaler (true DCT scale = coeffs8 / 8)
-        qs6 = qscale.to(torch.int32).repeat_interleave(6)
-        qdc = 8 * quant_ops.dc_scaler(qs6, self.luma_blk)
         dc8 = coeffs8[:, 0]
-        dc_lvl = torch.sign(dc8) * ((dc8.abs() + qdc // 2) // qdc)
+        if self.quant_kind in MPEG12_KINDS:
+            # an arithmetic shift of the int32 DC
+            dc_lvl = ((dc8 + 32) >> 6).clamp(0, 255)
+            if self.quant_kind == "mpeg2":
+                dc_lvl = dc_lvl * 8
+        else:
+            # intra DC by the DC scaler (true DCT scale = coeffs8 / 8)
+            qs6 = qscale.to(torch.int32).repeat_interleave(6)
+            qdc = 8 * quant_ops.dc_scaler(qs6, self.luma_blk)
+            dc_lvl = torch.sign(dc8) * ((dc8.abs() + qdc // 2) // qdc)
         levels[:, 0] = torch.where(use_intra.repeat_interleave(6), dc_lvl,
                                    levels[:, 0])
         out = (levels.reshape(self.nmb, 6, 64), mv, use_intra)
@@ -508,6 +540,109 @@ class EncodeB(_EncodePicture):
         _, _, levels = self.quantize(blocks - self.blocks(*pred), qscale,
                                      None, intra_qmat_zz, inter_qmat_zz)
         return levels.reshape(self.nmb, 6, 64), mv_f, mv_b, sel, sad
+
+
+class EncodeBMpeg(_EncodePicture):
+    """B picture encode of the MPEG-1/2 encoders, the JAX encode_b_jit
+    program: forward and backward half-pel search inside the picture,
+    MPEG-1/2 chroma vectors, a per-MB mode, the first minimum of (forward
+    SAD, backward SAD, bi SAD + 64), the residual's FDCT and the inter
+    quantiser. -> (levels (nmb, 6, 64) zigzag, forward and backward
+    vectors, use_fwd, use_bwd; bi sets both)."""
+
+    def __init__(self, mb_w: int, mb_h: int, quant_kind: str = "mpeg1",
+                 search_range: int = 15):
+        if quant_kind not in MPEG12_KINDS:
+            raise ValueError(f"no MPEG-1/2 quantiser {quant_kind!r}")
+        super().__init__(mb_w, mb_h, search_range, quant_kind)
+
+    def forward(self, cur_y, cur_u, cur_v, qscale, inter_qmat_zz,
+                r0y, r0u, r0v, r1y, r1u, r1v):
+        cur_mbs, blocks = self.source(cur_y, cur_u, cur_v)
+        mvf, sadf = self.motion(cur_mbs, r0y)
+        mvb, sadb = self.motion(cur_mbs, r1y)
+        pf = self.mc6((r0y, r0u, r0v), mvf, 1)
+        pb = self.mc6((r1y, r1u, r1v), mvb, 1)
+        sadbi = (cur_mbs - avg_pred(pf[0], pb[0])).abs().sum(
+            dim=(1, 2), dtype=torch.int32)
+        # argmin over (sadf, sadb, sadbi + 64), a tie to the first, by
+        # explicit comparisons
+        sadbi = sadbi + 64
+        fwd = (sadf <= sadb) & (sadf <= sadbi)
+        bwd = ~fwd & (sadb <= sadbi)
+        use_fwd, use_bwd = ~bwd, ~fwd
+        m = (fwd.to(torch.int32) + 2 * bwd.to(torch.int32))[:, None, None]
+        pred = [torch.where(m == 1, a, torch.where(m == 2, b,
+                                                   avg_pred(a, b)))
+                for a, b in zip(pf, pb)]
+        _, _, levels = self.quantize(blocks - self.blocks(*pred), qscale,
+                                     None, None, inter_qmat_zz)
+        return levels.reshape(self.nmb, 6, 64), mvf, mvb, use_fwd, use_bwd
+
+
+def field_mode_pattern(mb_w: int, mb_h_f: int, pattern: str) -> np.ndarray:
+    """The field_motion_type of each MB of a P field picture of the
+    field-stress generator: 0 whole-field same parity, 1 whole-field
+    opposite parity, 2 16x8 (upper same, lower opposite), 3 dual prime,
+    by pattern 'same', 'opp', 'whole', 'h16', 'dponly' or 'full' (all
+    four in turn). Dual prime only on interior MBs: the reference
+    decoder skips any motion compensation whose window leaves the
+    picture, so a conforming stream keeps the derived cross-parity
+    vector in bounds with a whole MB of margin."""
+    nmb = mb_w * mb_h_f
+    diag = np.arange(nmb) + np.arange(nmb) // mb_w
+    mode_pat = {"same": np.zeros(nmb, dtype=np.int64),
+                "opp": np.ones(nmb, dtype=np.int64),
+                "whole": diag % 2, "h16": (diag % 2) * 2,
+                "dponly": (diag % 2) * 3}.get(pattern, diag % 4)
+    bx = np.arange(nmb) % mb_w
+    by = np.arange(nmb) // mb_w
+    interior = (bx > 0) & (bx < mb_w - 1) & (by > 0) & (by < mb_h_f - 1)
+    return np.where((mode_pat == 3) & ~interior, 0, mode_pat)
+
+
+class EncodeFieldStress(_EncodePicture):
+    """P field picture encode of the MPEG-2 field-stress generator, the
+    JAX encode_field_stress_jit program: one bounded field search against
+    the same-parity reference field supplies the vector of every MB,
+    whose field_motion_type is `mode_pat` (field_mode_pattern): the
+    same-parity or opposite-parity whole-field prediction, the 16x8 pair
+    (upper same, lower opposite), or dual prime with dmv = 0 (the average
+    of the same-parity prediction and the opposite one from the derived
+    vector ((v + (v > 0)) >> 1), y -1 for a top field, +1 for a bottom
+    one). -> (levels (nmb, 6, 64) zigzag, vectors) in field geometry."""
+
+    def __init__(self, mb_w: int, mb_h_f: int, parity: int,
+                 search_range: int = 15, pattern: str = "full"):
+        super().__init__(mb_w, mb_h_f, search_range, "mpeg2")
+        self.parity = parity
+        self.mode_pat = field_mode_pattern(mb_w, mb_h_f, pattern)
+        self.register_buffer("pat", torch.as_tensor(self.mode_pat)[:, None,
+                                                                   None])
+
+    def forward(self, src_y, src_u, src_v, qscale, inter_qmat_zz,
+                sty, stu, stv, sby, sbu, sbv):
+        cur_mbs, blocks = self.source(src_y, src_u, src_v)
+        same, opp = (sty, stu, stv), (sby, sbu, sbv)
+        if self.parity:
+            same, opp = opp, same
+        mv, _ = self.motion(cur_mbs, same[0])
+        ps = self.mc6(same, mv, 1)
+        po = self.mc6(opp, mv, 1)
+        dx = (mv[:, 0] + (mv[:, 0] > 0).to(torch.int32)) >> 1
+        dy = ((mv[:, 1] + (mv[:, 1] > 0).to(torch.int32)) >> 1) + \
+            (1 if self.parity else -1)
+        pdp = self.mc6(opp, torch.stack([dx, dy], 1), 1)
+        pat = self.pat
+        pred = []
+        for a, b, d in zip(ps, po, pdp):
+            half = a.shape[1] // 2
+            h16 = torch.cat([a[:, :half], b[:, half:]], 1)
+            pred.append(torch.where(pat == 0, a, torch.where(
+                pat == 1, b, torch.where(pat == 2, h16, avg_pred(a, d)))))
+        _, _, levels = self.quantize(blocks - self.blocks(*pred), qscale,
+                                     None, None, inter_qmat_zz)
+        return levels.reshape(self.nmb, 6, 64), mv
 
 
 class GMCResidual(_EncodePicture):
@@ -592,6 +727,22 @@ def encode_b_h263(mb_w: int, mb_h: int, quant_kind: str = "h263",
                   search_range: int = 12, *,
                   device: torch.device) -> EncodeB:
     return EncodeB(mb_w, mb_h, search_range, quant_kind).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def encode_b(mb_w: int, mb_h: int, quant_kind: str = "mpeg1",
+             search_range: int = 15, *, device: torch.device) -> EncodeBMpeg:
+    return EncodeBMpeg(mb_w, mb_h, quant_kind, search_range).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def encode_field_stress(mb_w: int, mb_h_f: int, parity: int,
+                        search_range: int = 15, pattern: str = "full", *,
+                        device: torch.device) -> EncodeFieldStress:
+    """The field-stress P program; its `mode_pat` is the JAX factory's
+    second result."""
+    return EncodeFieldStress(mb_w, mb_h_f, parity, search_range,
+                             pattern).to(device)
 
 
 @functools.lru_cache(maxsize=8)

@@ -68,8 +68,6 @@ def register_output(cls):
 # extensions its probe takes, the ROADMAP.md module-queue step that ports
 # it)
 NOT_PORTED = {
-    "flv": (("flv",), "8b"),
-    "h263": (("h263", "263"), "8b"),
     "hls": (("m3u8", "m3u"), "16"),
     "rtp": ((), "16"),
     "rtsp": ((), "16"),

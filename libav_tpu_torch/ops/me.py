@@ -13,8 +13,11 @@ the search range, the patch origin clamped into the padded plane. The refinement
 vectors around twice the full-pel one through `mc_hpel` (rounding 1),
 starting from a best SAD of 1 << 30.
 
-The JAX programs' `bounded` mode, which keeps vectors inside the picture
-for the MPEG-1/2 encoders, is not ported (ROADMAP.md step 8b).
+With bounded=True (the MPEG-1/2 encoders) every candidate is clamped
+after the clamp to the search range so that the 16x16 patch stays inside
+the picture, [-x, W-16-x] x [-y, H-16-y] for the MB at (x, y), and the
+refinement's half-pel candidates to twice those bounds: MPEG-1/2 forbid
+vectors that reach outside the coded area.
 """
 
 from __future__ import annotations
@@ -46,22 +49,37 @@ class _Search(nn.Module):
     """Per-geometry constants of a search over mb_w x mb_h macroblocks:
     the MB origins and the diamond."""
 
-    def __init__(self, mb_w: int, mb_h: int):
+    def __init__(self, mb_w: int, mb_h: int, bounded: bool = False,
+                 scale: int = 1):
         super().__init__()
         self.nmb = mb_w * mb_h
+        self.bounded = bounded
         xs = (np.arange(self.nmb) % mb_w) * 16
         ys = (np.arange(self.nmb) // mb_w) * 16
         self.register_buffer("xs", torch.as_tensor(xs.astype(np.int32)))
         self.register_buffer("ys", torch.as_tensor(ys.astype(np.int32)))
         self.register_buffer("offsets", torch.as_tensor(_DIAMOND))
+        # the vectors that keep each MB's patch inside the picture, in
+        # units of 1 / scale pel: (nmb, 2) lower and upper bounds
+        lo = -scale * np.stack([xs, ys], 1)
+        hi = scale * np.stack([mb_w * 16 - 16 - xs, mb_h * 16 - 16 - ys], 1)
+        self.register_buffer("lo", torch.as_tensor(lo.astype(np.int32)))
+        self.register_buffer("hi", torch.as_tensor(hi.astype(np.int32)))
+
+    def bound(self, cand: torch.Tensor) -> torch.Tensor:
+        """cand clamped into the picture where the search is bounded."""
+        if not self.bounded:
+            return cand
+        return torch.maximum(torch.minimum(cand, self.hi), self.lo)
 
 
 class FullPelSearch(_Search):
     """The JAX _search_jit program: (cur_mbs (nmb, 16, 16) int32, padded
     reference plane) -> (full-pel vectors (nmb, 2) int32, best SAD)."""
 
-    def __init__(self, mb_w: int, mb_h: int, search_range: int):
-        super().__init__(mb_w, mb_h)
+    def __init__(self, mb_w: int, mb_h: int, search_range: int,
+                 bounded: bool = False):
+        super().__init__(mb_w, mb_h, bounded)
         self.search_range = search_range
         s = 1
         while s * 2 <= search_range:
@@ -84,7 +102,8 @@ class FullPelSearch(_Search):
         r = self.search_range
         for step in self.steps:
             for k in range(1, len(_DIAMOND)):
-                cand = (mv + self.offsets[k] * step).clamp(-r, r)
+                cand = self.bound((mv + self.offsets[k] * step)
+                                  .clamp(-r, r))
                 sad = self.sad(cur_mbs, padded_ref, cand)
                 mv = torch.where((sad < best)[:, None], cand, mv)
                 best = torch.minimum(sad, best)
@@ -95,13 +114,18 @@ class HpelRefine(_Search):
     """The JAX _hpel_refine_jit program: (cur_mbs, padded reference,
     full-pel vectors) -> (half-pel vectors (nmb, 2) int32, their SAD)."""
 
+    def __init__(self, mb_w: int, mb_h: int, bounded: bool = False):
+        # half-pel bounds: an odd value below the (even) upper bound
+        # still reads only up to the last sample of the picture
+        super().__init__(mb_w, mb_h, bounded, scale=2)
+
     def forward(self, cur_mbs, padded_ref, fullpel_mv):
         mv = fullpel_mv * 2
         best = torch.full((self.nmb,), 1 << 30, dtype=torch.int32,
                           device=cur_mbs.device)
         out = mv
         for k in range(len(_DIAMOND)):
-            cand = mv + self.offsets[k]
+            cand = self.bound(mv + self.offsets[k])
             pred = mc_hpel(padded_ref, self.xs, self.ys, cand[:, 0],
                            cand[:, 1], 16)
             sad = _sad(cur_mbs, pred)
@@ -111,15 +135,15 @@ class HpelRefine(_Search):
 
 
 @functools.lru_cache(maxsize=16)
-def search(mb_w: int, mb_h: int, search_range: int, *,
-           device: torch.device) -> FullPelSearch:
-    return FullPelSearch(mb_w, mb_h, search_range).to(device)
+def search(mb_w: int, mb_h: int, search_range: int, bounded: bool = False,
+           *, device: torch.device) -> FullPelSearch:
+    return FullPelSearch(mb_w, mb_h, search_range, bounded).to(device)
 
 
 @functools.lru_cache(maxsize=16)
-def hpel_refine(mb_w: int, mb_h: int, *,
+def hpel_refine(mb_w: int, mb_h: int, bounded: bool = False, *,
                 device: torch.device) -> HpelRefine:
-    return HpelRefine(mb_w, mb_h).to(device)
+    return HpelRefine(mb_w, mb_h, bounded).to(device)
 
 
 def motion_search(cur_mbs, padded_ref, mb_w: int, mb_h: int,

@@ -31,6 +31,12 @@ encoded video is committed. `mpeg4_asp.golden.json` and
 (weighted prediction, I_PCM, PAFF, MBAFF) come with their goldens, and
 the PAFF one with its framecrc. `filters.golden.json` and
 `filters_<run>.framecrc` hold the JAX CLI's outputs for FILTER_RUNS.
+`mpeg12_encode.golden.json` holds the JAX MPEG-1/2 encoders' digests for
+MPEG12_RUNS on `pattern` frames (the two MPEG-2 streams above are those
+encoders' own packets, with MPEG2_STREAMS' settings). LEGACY's streams
+(H.263, FLV1, MSMPEG4 v2/v3, WMV1, from `tools/legacy_streams.py`) come
+with the JAX decoders' digests in `legacy.golden.json` and the JAX CLI's
+`<name>.framecrc`.
 All files are written by `tools/gen_torch_smoke_stream.py`.
 """
 
@@ -61,6 +67,58 @@ CLI_INPUTS = {
     "mpeg2_1080i_fieldpic": (".m2vpkts", "fld.m2v"),
     MJPEG_SMOKE: (".mjpegpkts", "frames.mjpeg"),
 }
+
+
+# the JAX MPEG-2 encoder's settings for the two committed MPEG-2 streams:
+# name -> (frames of `pattern` at 1920x1080, encoder options)
+MPEG2_STREAMS = {
+    "mpeg2_1080i_fieldpic": (4, {"qscale": 6, "gop_size": 8, "fieldpic": 1,
+                                 "fieldstress": "full"}),
+    "mpeg2_1080p_ipbb": (7, {"qscale": 6, "gop_size": 8, "b_frames": 2}),
+}
+# the MPEG-1/2 encoders' runs on MPEG12_FRAMES frames of `pattern` at
+# 1920x1080 (mpeg12_encode.golden.json: the source planes' adler32, each
+# run's packet sizes and md5s and its anchors' reconstructions): run ->
+# (codec, options). The JAX CLI's md5 of MPEG12_CLI's runs on the bench
+# stream (bench.h264, 8 frames) are there too.
+MPEG12_ENCODE = "mpeg12_encode"
+MPEG12_FRAMES = 7
+MPEG12_RUNS = {
+    "M1": ("mpeg1video", {"qscale": 6, "gop_size": 8, "b_frames": 2,
+                          "trellis": 1, "mbcmp": "satd"}),
+    "M2aq": ("mpeg2video", {"qscale": 6, "gop_size": 8,
+                            "lumi_masking": 0.2, "scplx_masking": 0.3}),
+    "M2rc": ("mpeg2video", {"gop_size": 8, "b_frames": 2,
+                            "bit_rate": 15000000}),
+}
+MPEG12_CLI = {
+    "out.m2v": ("-c:v", "mpeg2video", "-q:v", "6", "-g", "8", "-bf", "2"),
+    "out.ts": ("-an",),
+}
+# the legacy decoders' streams (tools/legacy_streams.py): name -> (file,
+# codec, width, height, pictures); legacy.golden.json holds the JAX
+# decoders' digests, <name>.framecrc the JAX CLI's `-i <file> -f framecrc`
+LEGACY = {
+    "h263_16cif": ("h263_16cif.263", "h263", 1408, 1152, 6),
+    "flv1_720p": ("flv1_720p.flv", "flv1", 1280, 720, 6),
+    "msmpeg4v3_720p": ("msmpeg4v3_720p.avi", "msmpeg4v3", 1280, 720, 6),
+    "msmpeg4v2_720p": ("msmpeg4v2_720p.avi", "msmpeg4v2", 1280, 720, 6),
+    "wmv1_720p": ("wmv1_720p.avi", "wmv1", 1280, 720, 6),
+}
+
+
+def mpeg12_golden_path() -> str:
+    return os.path.join(HERE, MPEG12_ENCODE + ".golden.json")
+
+
+def legacy_paths(name: str):
+    """(stream file, the JAX CLI's framecrc of it) of a LEGACY stream."""
+    return (os.path.join(HERE, LEGACY[name][0]),
+            os.path.join(HERE, name + ".framecrc"))
+
+
+def legacy_golden_path() -> str:
+    return os.path.join(HERE, "legacy.golden.json")
 
 
 # the MPEG-4 encode of mpeg2_1080p_ipbb's decoded frames: its golden
@@ -378,6 +436,26 @@ def rgb2yuv_frame(h: int, w: int, fmt: str) -> np.ndarray:
     pick = (np.arange(ch)[:, None] + np.arange(cw)[None, :]) % n
     img = units[pick].transpose(0, 2, 1, 3, 4).reshape(ch * fh, cw * fw, 3)
     return np.ascontiguousarray(img[:h, :w].reshape(h, 3 * w))
+
+
+def pattern(width: int, height: int, t: int):
+    """Frame t of bench.py's moving test pattern as host 4:2:0 (Y, U, V)
+    uint8 planes, chroma ((height + 1) // 2, (width + 1) // 2): the
+    source of the committed MPEG-1/2 encodes' goldens, which
+    `tools/gen_torch_smoke_stream.py` builds its frames from."""
+    yy, xx = np.mgrid[0:height, 0:width]
+    y = ((xx // 2 + yy // 3 + t * 4) % 256).astype(np.uint8)
+    yy, xx = np.mgrid[0:(height + 1) // 2, 0:(width + 1) // 2]
+    u = (128 + 54 * np.sin((xx + 3 * t) / 9.0)).astype(np.uint8)
+    v = (128 + 54 * np.cos((yy - 2 * t) / 7.0)).astype(np.uint8)
+    return y, u, v
+
+
+def plane_adler32(planes) -> List[str]:
+    """adler32 (seed 1, as zlib computes it) of each plane's bytes."""
+    return ["0x%08x" % (zlib.adler32(np.ascontiguousarray(p, np.uint8)
+                                     .tobytes()) & 0xFFFFFFFF)
+            for p in planes]
 
 
 def padded_planes(rng, H: int, W: int):

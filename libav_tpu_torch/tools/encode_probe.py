@@ -1,12 +1,14 @@
-"""Helpers that time the MPEG-4 encoder on the committed 1080p IPB
-stream, for chip_smoke.py's phase 10: `decode_source` decodes
-`mpeg2_1080p_ipbb` (7 frames, 1920x1080) with the port's MPEG-2 decoder
-on a device, `encode` runs the frames through MPEG4Encoder where they
-lie (seconds, packets, optionally the anchors' reconstructions), and
-`stages` times each stage of the encodes run inside it, synchronised
-before and after: the P and B motion searches, FDCT + quant, the anchor
-recon, the download for the packer, and host packing of I/P and of B
-VOPs.
+"""Helpers that time the port's encoders, for chip_smoke.py's phases 10
+(MPEG-4, on the committed 1080p IPB stream) and 17 (MPEG-1/2, on the
+moving test pattern): `decode_source` decodes `mpeg2_1080p_ipbb` (7
+frames, 1920x1080) with the port's MPEG-2 decoder on a device,
+`pattern_frames` puts frames of `testdata.pattern` on a device, `encode`
+runs frames through an encoder (MPEG4Encoder by default, or the MPEG-1/2
+ones) where they lie (seconds, packets, optionally the anchors'
+reconstructions), and `stages` times each stage of the encodes run
+inside it, synchronised before and after: the P and B motion searches
+(and the MPEG-2 field search), FDCT + quant, the anchor recon, the
+download for the packer, and host packing of I/P and of B pictures.
 """
 
 from __future__ import annotations
@@ -18,10 +20,12 @@ import time
 import torch
 
 from libav_tpu_torch import testdata
-from libav_tpu_torch.avutil.frame import Packet
+from libav_tpu_torch.avutil.frame import Frame, Packet
+from libav_tpu_torch.avutil.rational import Rational
 from libav_tpu_torch.codecs import mpegvideo
-from libav_tpu_torch.codecs.api import CodecParameters, MediaType
-from libav_tpu_torch.codecs.mpeg12 import MPEG2Decoder
+from libav_tpu_torch.codecs.api import (CodecParameters, MediaType,
+                                        find_encoder)
+from libav_tpu_torch.codecs.mpeg12 import MPEG1Encoder, MPEG2Decoder
 from libav_tpu_torch.codecs.mpeg4.enc import MPEG4Encoder
 from libav_tpu_torch.ops.mc import EDGE
 
@@ -43,25 +47,44 @@ def decode_source(dev: torch.device):
     return frames, time.perf_counter() - t0
 
 
-def encode(dev: torch.device, frames, settings, anchors=None):
-    """frames through MPEG4Encoder on dev once: (packet bytes, seconds).
-    With a list for anchors, each anchor's reconstructed coded (Y, U, V)
-    planes are appended to it, on the host."""
+def pattern_frames(dev: torch.device, width: int, height: int, n: int):
+    """Frames 0..n-1 of testdata.pattern, their planes uint8 tensors on
+    dev."""
+    out = []
+    for t in range(n):
+        f = Frame(width=width, height=height, format="yuv420p")
+        f.planes = [torch.as_tensor(p).to(dev)
+                    for p in testdata.pattern(width, height, t)]
+        f.pts = t
+        out.append(f)
+    return out
+
+
+def encode(dev: torch.device, frames, settings, anchors=None,
+           codec: str = "mpeg4"):
+    """frames through the port's encoder of codec (MPEG4Encoder, or
+    MPEG1Encoder / MPEG2Encoder at 25 fps) on dev once: (packet bytes,
+    seconds). With a list for anchors, each anchor's reconstructed coded
+    (Y, U, V) planes are appended to it, on the host."""
     f0 = frames[0]
-    enc = MPEG4Encoder(CodecParameters(
-        codec_type=MediaType.VIDEO, codec_id="mpeg4", width=f0.width,
-        height=f0.height, pix_fmt="yuv420p"), device=dev)
+    par = CodecParameters(
+        codec_type=MediaType.VIDEO, codec_id=codec, width=f0.width,
+        height=f0.height, pix_fmt="yuv420p")
+    if codec != "mpeg4":
+        par.framerate = Rational(25, 1)
+    enc = find_encoder(codec)(par, device=dev)
     for k, v in settings.items():
         enc.set_opt(k, v)
     if anchors is not None:
-        code_anchor = enc._code_anchor
+        hook = "_code_anchor" if codec == "mpeg4" else "_encode_anchor"
+        code_anchor = getattr(enc, hook)
 
         def recorded(*args):
             pkt = code_anchor(*args)
             anchors.append([p[EDGE:-EDGE, EDGE:-EDGE].cpu().numpy()
                             for p in enc._refs])
             return pkt
-        enc._code_anchor = recorded
+        setattr(enc, hook, recorded)
     sync(dev)
     t0 = time.perf_counter()
     datas = [p.data for p in enc.encode_all(frames)]
@@ -75,24 +98,35 @@ def packet_digests(datas):
 
 
 @contextlib.contextmanager
-def stages(dev: torch.device):
-    """Inside, the encoder's stages are timed, each synchronised before
-    and after: yields {stage: [ms per call]}. Measurement only. It
-    replaces methods of the classes for the whole process, so every
-    encode or decode that runs inside (a decode's Recon too) is timed and
-    synchronised: use it with nothing else running."""
+def stages(dev: torch.device, codec: str = "mpeg4"):
+    """Inside, the stages of codec's encoder (the MPEG-4 one, or the
+    MPEG-1/2 ones) are timed, each synchronised before and after: yields
+    {stage: [ms per call]}. Measurement only. It replaces methods of the
+    classes for the whole process, so every encode or decode that runs
+    inside (a decode's Recon too) is timed and synchronised: use it with
+    nothing else running."""
     out = {}
 
     def search(module, *args):
+        if isinstance(module, mpegvideo.EncodeFieldStress):
+            return "P field search (full + half pel)"
         return ("P search (full + half pel)"
                 if isinstance(module, mpegvideo.Encode)
                 else "B search (full + half pel), per direction")
+    recon = "anchor recon (one K2 launch)"
     patches = [(mpegvideo._EncodePicture, "motion", search),
                (mpegvideo._EncodePicture, "quantize", "FDCT + quant"),
-               (mpegvideo.Recon, "forward", "anchor recon (one K2 launch)"),
-               (MPEG4Encoder, "_download", "levels/MV/intra download"),
-               (MPEG4Encoder, "_pack", "I/P host packing"),
-               (MPEG4Encoder, "_b_layer", "B host packing")]
+               (mpegvideo.Recon, "forward", recon)]
+    if codec == "mpeg4":
+        patches += [(MPEG4Encoder, "_download", "levels/MV/intra download"),
+                    (MPEG4Encoder, "_pack", "I/P host packing"),
+                    (MPEG4Encoder, "_b_layer", "B host packing")]
+    else:
+        patches += [(mpegvideo.ReconField, "forward",
+                     "field recon (one K2 launch)"),
+                    (MPEG1Encoder, "_download", "levels/MV/intra download"),
+                    (MPEG1Encoder, "_pack", "I/P host packing"),
+                    (MPEG1Encoder, "_slices_b", "B host packing")]
     saved = []
     for cls, name, label in patches:
         inner = cls.__dict__[name]

@@ -354,9 +354,17 @@ def test_find_decoder_runs_on_the_card_unless_told():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             find_decoder("mpeg4")()
-    for codec in ("h263", "flv1", "msmpeg4v3", "wmv1"):
-        with pytest.raises(AVError, match="step 8b"):
-            find_decoder(codec)
+    # the legacy decoders of step 8b resolve to the port's classes; an
+    # unported codec names its step
+    from libav_tpu_torch.codecs.h263dec import FLV1Decoder, H263Decoder
+    from libav_tpu_torch.codecs.msmpeg4dec import (MSMPEG4v3Decoder,
+                                                   WMV1Decoder)
+    for codec, cls in (("h263", H263Decoder), ("flv1", FLV1Decoder),
+                       ("msmpeg4v3", MSMPEG4v3Decoder),
+                       ("wmv1", WMV1Decoder)):
+        assert find_decoder(codec) is cls
+    with pytest.raises(AVError, match="step 11"):
+        find_decoder("prores")
 
 
 def test_parser_splits_vops():

@@ -268,16 +268,13 @@ def test_zero_pad_refs():
                                    dict(quant_kind="mpeg4"),
                                    dict(quant_kind="mpeg4mq")])
 def test_mpeg4_family_is_refused(flags):
-    """The H.263 short-header and WMV1 quantisers stay refused (step 8b);
-    the rest of the MPEG-4 family's reconstruction, ported since, holds
-    the JAX program's planes: qpel and 4MV on the H.263 dequant, and the
-    'mpeg4' and 'mpeg4mq' quantisers."""
+    """The MPEG-4 family's reconstruction, once refused, holds the JAX
+    program's planes: qpel and 4MV on the H.263 dequant, the 'mpeg4' and
+    'mpeg4mq' quantisers, and the legacy decoders' H.263 short-header
+    ('h263sh', DC scaler 8) and WMV1 ('wmv1', its DC scale tables)
+    quantisers."""
     key = dict(quant_kind="mpeg2", alt_scan=False, inter_frame=True)
     key.update(flags)
-    if key["quant_kind"] in ("h263sh", "wmv1"):
-        with pytest.raises(NotImplementedError, match="step 8b"):
-            tmv.recon(4, 2, device=CPU, **key)
-        return
     if key["quant_kind"] == "mpeg2":
         key["quant_kind"] = "h263"
     args, kw = testdata.recon_inputs(90, 4, 2, True,

@@ -26,7 +26,7 @@ from libav_tpu.tools import avprobe as jax_avprobe
 from libav_tpu.tools import pallas_probe
 from libav_tpu_torch import testdata
 from libav_tpu_torch.avutil.error import AVError
-from libav_tpu_torch.codecs import find_decoder, mpeg12
+from libav_tpu_torch.codecs import find_decoder, find_encoder, mpeg12
 from libav_tpu_torch.formats import m4v
 from libav_tpu_torch.ops import h264deblock as tdb
 from libav_tpu_torch.ops import idct as tidct
@@ -160,7 +160,7 @@ def test_avprobe_raises_device_faults(inputs, monkeypatch):
 @pytest.mark.parametrize("opts,step", [
     (["-c:v", "mjpeg"], "step 9"),
     (["-c:v", "h264"], "step 7"),
-    (["-c:v", "mpeg2video"], "step 8b"),
+    (["-c:v", "rawvideo", "-f", "hls"], "step 16"),
     (["-c:v", "prores"], "step 11"),
     (["-c:v", "ffv1"], "step 15"),
 ])
@@ -224,8 +224,8 @@ def test_avconv_mpeg4_to_avi_matches_jax(inputs, tmp_path):
 
 
 def test_unported_decoders_name_their_step():
-    with pytest.raises(AVError, match="step 8b"):
-        find_decoder("h263")
+    with pytest.raises(AVError, match="step 9"):
+        find_encoder("mjpeg")
     with pytest.raises(AVError, match="step 11"):
         find_decoder("prores")
     with pytest.raises(AVError, match="step 15"):
@@ -235,13 +235,13 @@ def test_unported_decoders_name_their_step():
 
 
 @pytest.mark.parametrize("name,data,step", [
-    ("in.flv", b"FLV\x01\x05\x00\x00\x00\x09" + bytes(64), "step 8b"),
+    ("in.sdp", b"v=0\r\no=- 0 0 IN IP4 127.0.0.1\r\ns=x\r\n", "step 16"),
     ("live.m3u8", b"#EXTM3U\n#EXT-X-TARGETDURATION:2\nseg0.ts\n",
      "step 16"),
 ])
 def test_unported_containers_name_their_step(name, data, step, tmp_path,
                                               capsys):
-    """An FLV file and an HLS playlist: the JAX package has their
+    """An SDP file and an HLS playlist: the JAX package has their
     demuxers and the port not yet; avconv says which step ports each."""
     src = tmp_path / name
     src.write_bytes(data)

@@ -64,6 +64,18 @@ package's decoder, and written with its golden into
             yadif + MPEG-4 transcode, the -af PCM) and of the -c copy mux
             of the bench stream into bench.mp4 (~10 min; needs the
             streams and config5's AC-3 stream)
+    mpeg12enc  mpeg12_encode.golden.json: testdata.MPEG12_RUNS (MPEG-1
+            with B-frames, trellis and SATD; MPEG-2 with adaptive
+            quantisation; MPEG-2 with rate control at 15 Mbit/s) on 7
+            frames of the pattern at 1920x1080 through the JAX encoders,
+            each packet's size and md5 and each anchor's reconstruction,
+            the source planes' adler32, and the md5 of the JAX CLI's
+            testdata.MPEG12_CLI runs on bench.h264 (~10 min)
+    legacy  testdata.LEGACY's streams from tools/legacy_streams.py (H.263
+            16CIF as .263; FLV1, MSMPEG4 v3, v2 and WMV1 at 1280x720 in
+            FLV and AVI; 6 pictures each), legacy.golden.json with the JAX
+            decoders' digests (a stream whose decode warns or conceals is
+            refused), and <name>.framecrc of the JAX CLI on each file
 
 The machine with the GPU has no jax, so the port's smoke run reads these
 files instead of encoding. Run from the repository root (no argument
@@ -72,7 +84,7 @@ framecrc, mpeg4 and config5 need the streams written first):
 
     JAX_PLATFORMS=cpu python tools/gen_torch_smoke_stream.py \
         [h264] [mpeg2] [mjpeg] [small] [framecrc] [mpeg4] [mpeg4asp] \
-        [h264ext] [config5] [containers] [filters]
+        [h264ext] [config5] [containers] [filters] [mpeg12enc] [legacy]
 """
 
 from __future__ import annotations
@@ -93,23 +105,14 @@ import numpy as np  # noqa: E402
 import bench  # noqa: E402
 from libav_tpu_torch import testdata  # noqa: E402
 
-MPEG2_SETTINGS = {
-    "mpeg2_1080i_fieldpic": (4, {"qscale": 6, "gop_size": 8, "fieldpic": 1,
-                                 "fieldstress": "full"}),
-    "mpeg2_1080p_ipbb": (7, {"qscale": 6, "gop_size": 8, "b_frames": 2}),
-}
-
-
 def pattern(width: int, height: int, t: int, pix_fmt: str = "yuv420p"):
-    """Frame t of bench.py's moving test pattern, as a host 4:2:0 Frame."""
+    """Frame t of bench.py's moving test pattern (`testdata.pattern`), as
+    a host 4:2:0 Frame."""
     from libav_tpu.avutil.frame import Frame
     f = Frame.alloc_video(width, height, pix_fmt)
-    yy, xx = np.mgrid[0:height, 0:width]
-    f.planes[0] = ((xx // 2 + yy // 3 + t * 4) % 256).astype(np.uint8)
-    ch, cw = f.planes[1].shape
-    yy, xx = np.mgrid[0:ch, 0:cw]
-    f.planes[1] = (128 + 54 * np.sin((xx + 3 * t) / 9.0)).astype(np.uint8)
-    f.planes[2] = (128 + 54 * np.cos((yy - 2 * t) / 7.0)).astype(np.uint8)
+    planes = testdata.pattern(width, height, t)
+    assert [p.shape for p in planes] == [p.shape for p in f.planes[:3]]
+    f.planes[:3] = planes
     return f
 
 
@@ -414,6 +417,187 @@ def encode_mpeg4(frames, settings):
     return [p.data for p in enc.encode_all(frames)], anchors
 
 
+def encode_mpeg12(codec, nframes, settings, width=1920, height=1080):
+    """nframes of the pattern through the JAX package's MPEG-1/2 encoder:
+    (packet bytes, the anchors' reconstructed coded (Y, U, V) planes in
+    coding order)."""
+    from libav_tpu.avutil.rational import Rational
+    from libav_tpu.codecs.api import CodecParameters, MediaType, find_encoder
+    from libav_tpu.ops.mc import EDGE
+    enc = find_encoder(codec)(CodecParameters(
+        codec_type=MediaType.VIDEO, codec_id=codec, width=width,
+        height=height, pix_fmt="yuv420p", framerate=Rational(25, 1)))
+    for k, v in settings.items():
+        enc.set_opt(k, v)
+    anchors = []
+    inner = enc._encode_anchor
+
+    def recorded(*args):
+        pkt = inner(*args)
+        anchors.append([np.asarray(p)[EDGE:-EDGE, EDGE:-EDGE]
+                        for p in enc._refs])
+        return pkt
+    enc._encode_anchor = recorded
+    datas = [p.data for p in enc.encode_all(
+        [pattern(width, height, t) for t in range(nframes)])]
+    return datas, anchors
+
+
+def write_mpeg12():
+    """The MPEG-1/2 encoders' goldens: the source planes' adler32, each
+    MPEG12_RUNS run's packets and anchors, and the JAX CLI's MPEG12_CLI
+    runs on bench.h264 (digests only)."""
+    import hashlib
+    from libav_tpu.tools import avconv
+    n = testdata.MPEG12_FRAMES
+    gold = {"frames": n, "width": 1920, "height": 1080,
+            "source": [testdata.plane_adler32(testdata.pattern(1920, 1080, t))
+                       for t in range(n)],
+            "streams": {k: v[1] for k, v in testdata.MPEG2_STREAMS.items()},
+            "runs": {}, "cli": {}}
+    for run, (codec, settings) in testdata.MPEG12_RUNS.items():
+        datas, anchors = encode_mpeg12(codec, n, settings)
+        gold["runs"][run] = {
+            "codec": codec, "settings": settings,
+            "packets": [{"size": len(d), "md5": hashlib.md5(d).hexdigest()}
+                        for d in datas],
+            "anchors": testdata.digest(anchors)["frames"]}
+        print(f"{run}: {len(datas)} packets, {sum(map(len, datas))} bytes, "
+              f"{len(anchors)} anchors")
+    work = tempfile.mkdtemp()
+    try:
+        src = testdata.write_cli_input("h264_1080p_ipbb_cabac", work)
+        for out, args in testdata.MPEG12_CLI.items():
+            dst = os.path.join(work, out)
+            if avconv.main(["-i", src, *args, dst]) != 0:
+                raise SystemExit(f"avconv {' '.join(args)} {out} failed")
+            with open(dst, "rb") as f:
+                data = f.read()
+            gold["cli"][out] = {"args": list(args), "size": len(data),
+                                "md5": hashlib.md5(data).hexdigest()}
+            print(f"CLI {out}: {len(data)} bytes")
+    finally:
+        shutil.rmtree(work)
+    with open(testdata.mpeg12_golden_path(), "w") as f:
+        json.dump(gold, f, indent=1)
+        f.write("\n")
+
+
+# the writer's parameters for testdata.LEGACY's streams
+LEGACY_WRITERS = {
+    "h263_16cif": dict(seed=1301, fmt=5, gop=0, qscale=8),
+    "flv1_720p": dict(seed=1302, escapes=(0, 1), qscale=8),
+    "msmpeg4v3_720p": dict(seed=1303, version=3, slices=3, qscale=8),
+    "msmpeg4v2_720p": dict(seed=1304, version=2, slices=1, qscale=8),
+    "wmv1_720p": dict(seed=1305, version=4, slices=3, qscale=6,
+                      bitrate=400, per_mb_rl=True),
+}
+
+
+def legacy_file(name: str) -> bytes:
+    """testdata.LEGACY stream name written by tools/legacy_streams.py and
+    put in its container by the port's muxer: the file's bytes."""
+    from libav_tpu_torch.avutil.frame import Packet
+    from libav_tpu_torch.avutil.rational import Rational
+    from libav_tpu_torch.codecs.api import CodecParameters, MediaType
+    from libav_tpu_torch.formats.api import FormatContext
+    from tools import legacy_streams as L
+    fname, codec, w, h, n = testdata.LEGACY[name]
+    kw = dict(LEGACY_WRITERS[name])
+    frames = [testdata.pattern(w, h, t) for t in range(n)]
+    if codec == "h263":
+        return b"".join(L.h263_stream(frames, **kw))
+    if codec == "flv1":
+        datas = L.flv1_stream(frames, kw.pop("seed"), w, h, **kw)
+        fmt = "flv"
+    else:
+        datas = L.msmpeg4_stream(frames, kw.pop("seed"), kw.pop("version"),
+                                 w, h, **kw)
+        fmt = "avi"
+    work = tempfile.mkdtemp()
+    try:
+        path = os.path.join(work, fname)
+        oc = FormatContext.open_output(path, fmt)
+        oc.new_stream(CodecParameters(codec_type=MediaType.VIDEO,
+                                      codec_id=codec, width=w, height=h,
+                                      pix_fmt="yuv420p"),
+                      time_base=Rational(1, 25))
+        oc.write_header()
+        for i, d in enumerate(datas):
+            p = Packet(data=d, pts=i, dts=i, duration=1,
+                       flags=1 if i == 0 else 0)
+            p.stream_index = 0
+            p.time_base = Rational(1, 25)
+            oc.write_packet(p)
+        oc.write_trailer()
+        with open(path, "rb") as f:
+            return f.read()
+    finally:
+        shutil.rmtree(work)
+
+
+def write_legacy():
+    """testdata.LEGACY's streams, the JAX decoders' digests (a stream
+    whose decode logs a warning or conceals an MB is refused) and the
+    JAX CLI's framecrc of each file."""
+    from libav_tpu.avutil import log as jlog
+    from libav_tpu.codecs import er as jer
+    from libav_tpu.formats.api import FormatContext
+    from libav_tpu.tools import avconv
+    faults = []
+    warning, conceal = jlog.warning, jer.conceal_missing
+
+    def counted(*args):
+        n = conceal(*args)
+        faults.append(f"concealed {n} MBs")
+        return n
+    jlog.warning = lambda obj, fmt, *a: faults.append(fmt % a)
+    jer.conceal_missing = counted
+    gold = {}
+    try:
+        for name, (fname, codec, w, h, n) in testdata.LEGACY.items():
+            path, crc = testdata.legacy_paths(name)
+            with open(path, "wb") as f:
+                f.write(legacy_file(name))
+            ic = FormatContext.open_input(path)
+            datas = []
+            while True:
+                try:
+                    datas.append(bytes(ic.read_frame().data))
+                except Exception:
+                    break
+            ic.close()
+            frames = decode_reference(datas, codec) if codec in (
+                "h263", "flv1") else decode_legacy(datas, codec, w, h)
+            if faults or len(frames) != n:
+                raise SystemExit(f"{name}: {faults}, {len(frames)} frames")
+            gold[name] = testdata.digest(frames)
+            if avconv.main(["-i", path, "-f", "framecrc", crc]) != 0:
+                raise SystemExit(f"avconv -i {fname} failed")
+            print(f"{fname}: {os.path.getsize(path)} bytes, {n} pictures")
+    finally:
+        jlog.warning, jer.conceal_missing = warning, conceal
+    with open(testdata.legacy_golden_path(), "w") as f:
+        json.dump(gold, f, indent=1)
+        f.write("\n")
+
+
+def decode_legacy(datas, codec: str, width: int, height: int):
+    """The JAX package's MSMPEG4 decoders (they take the container's
+    dimensions): host (Y, U, V) per frame."""
+    from libav_tpu.avutil.frame import Packet
+    from libav_tpu.codecs.api import CodecParameters, MediaType, find_decoder
+    dec = find_decoder(codec)(CodecParameters(
+        codec_type=MediaType.VIDEO, codec_id=codec, width=width,
+        height=height))
+    try:
+        frames = dec.decode_all(Packet(data=d, pts=i)
+                                for i, d in enumerate(datas))
+    finally:
+        dec.close()
+    return [[np.asarray(p) for p in f.to_host().planes] for f in frames]
+
+
 def write_mpeg4():
     """The MPEG-4 encode of the IPB stream's decoded frames, and the JAX
     CLI's transcode of that stream as a file: digests only."""
@@ -519,7 +703,7 @@ def main(which):
         write(testdata.SMOKE_STREAM, testdata.SMOKE_GOLDEN,
               encode(bench.W, bench.H, bench.NFRAMES), "h264")
     if "mpeg2" in which:
-        for name, (nframes, settings) in MPEG2_SETTINGS.items():
+        for name, (nframes, settings) in testdata.MPEG2_STREAMS.items():
             write(*testdata.stream_paths(name),
                   encode(1920, 1080, nframes, "mpeg2video", settings),
                   "mpeg2video")
@@ -550,9 +734,13 @@ def main(which):
         write_containers()
     if "filters" in which:
         write_filters()
+    if "mpeg12enc" in which:
+        write_mpeg12()
+    if "legacy" in which:
+        write_legacy()
 
 
 if __name__ == "__main__":
     main(sys.argv[1:] or ("h264", "mpeg2", "mjpeg", "small", "framecrc",
                           "mpeg4", "mpeg4asp", "h264ext", "config5",
-                          "containers", "filters"))
+                          "containers", "filters", "mpeg12enc", "legacy"))
