@@ -30,11 +30,10 @@ Phases, in order; any failure exits nonzero and prints no result:
      (send_packet / receive_frame / drain), holds every frame's adler32
      and md5 against the golden that the JAX package produced, checks
      that the frame deblock kernel ran once per frame and the wave kernel
-     and the line kernel never, then times a warm second decode; then decodes it four more
-     times, the deblock in turns through the wave kernel and the frame
-     kernel (wave, frame, frame, wave), each
-     golden-identical, with the I and P/B frames' recon ms beside each
-     other;
+     and the line kernel never, then times a warm second decode; then
+     decodes it twice more, the deblock through the wave kernel and then
+     the frame kernel, each golden-identical, with the I and P/B frames'
+     recon ms beside each other;
   5. K2: idct8x8_int against the plain idct8x8_int_plain on the card
      (DC-only rows, all-zero blocks, values outside int16, rows whose
      sums overflow int32), exact, at every block count the main paths
@@ -123,7 +122,8 @@ Phases, in order; any failure exits nonzero and prints no result:
      to the JAX decoder's golden, K1's frame kernel launched once per
      deblocked picture (two per PAFF frame, none for MBAFF) and the wave
      kernel never; recon ms per picture by type, the weighted blend's ms
-     per weighted picture (synchronised), a warm decode's fps; K1 on the
+     per weighted picture (synchronised), a warm decode's fps (the first,
+     synchronised decode's for PAFF and MBAFF); K1 on the
      last PAFF field picture's padded planes and grids (120x34 MBs)
      against deblock_frame_plain, exact, with its time per call, its
      device time warm and cold and its bound; and the port's avconv
@@ -191,6 +191,28 @@ Phases, in order; any failure exits nonzero and prints no result:
      decoders' golden, K2 once per picture, warm fps, the host share
      (wall time outside Recon.forward on a third, warm pass), and
      `avconv -benchmark -f framecrc` on each file byte-identical to the
+     JAX CLI's;
+ 18. the H.264 and MJPEG encoders: the pattern's source planes against
+     encode_cli.golden.json's adler32 first; the port's H264Encoder on
+     the card encodes 8 pattern frames at 1920x1080 with the bench
+     settings (testdata.BENCH_SETTINGS: CABAC, I_8x8, 8x8 transform, 2
+     B-frames, deblock, 4 slices), every packet byte-identical to
+     h264_1080p_ipbb_cabac.h264pkts (the JAX encoder's), with K1 launched
+     once per reference picture of the closed loop, and decodes them with
+     the port's H264Decoder to the stream's golden; a warm encode (fps)
+     with every stage synchronised (the I_8x8 wavefront, the P and B
+     search + transform/quant programs, the download, host packing, the
+     closed-loop reference and K1 in it, ms per picture);
+     the first reference picture's closed-loop deblock (its padded planes
+     and grids) run again through deblock_frame_plain, equal to what the
+     loop kept, and K1's device time on them; the PAFF stream
+     (h264_1088i_paff, 4 frames as 8 field pictures, K1 on field rules)
+     likewise byte-identical, in one staged pass, and decoded to its
+     golden; 4 yuvj420p
+     pattern frames through MJPEGEncoder at quality 90 byte-identical to
+     mjpeg_1080p.mjpegpkts through the native packer (asserted built);
+     the port's avconv `-benchmark` encoding ipbb.m2v to H.264 with the
+     bench options and bench.h264 to MJPEG in AVI, md5-identical to the
      JAX CLI's.
 Profiled windows (the kernels' device times, phases 6 and 10's busy
 shares, kernel_probe in phase 7) count the launches of the hand kernel
@@ -678,7 +700,7 @@ def phase_decode(dev, card):
     # the same decode with the deblock through the wave kernel, in turns:
     # per-frame recon synchronised, the I frame apart
     recon = {"wave": [], "frame": []}
-    for path in ("wave", "frame", "frame", "wave"):
+    for path in ("wave", "frame"):
         with deblock_path(path):
             host, seconds, per = decode(dev, datas, time_recon=True)
         check_golden(host, gold, f"decode through the {path} kernel")
@@ -1699,8 +1721,14 @@ def phase_h264_ext(dev, card):
                                  f"h264_deblock_wave launched {launches} "
                                  f"times, expected ({pictures}, 0)")
         out["launches"][name] = launches[0]
-        host, warm_s, _ = decode(dev, datas)
-        check_golden(host, gold, f"{name} second decode")
+        # the interlaced streams (20 s a decode) are decoded once: their
+        # fps is the first, synchronised pass's
+        interlaced = opts.get("fieldpic") or opts.get("mbaff")
+        if interlaced:
+            warm_s = cold_s
+        else:
+            host, warm_s, _ = decode(dev, datas)
+            check_golden(host, gold, f"{name} second decode")
         by_type = {}
         for pt, ms in recon_ms:
             by_type.setdefault(names.get(pt, pt), []).append(ms)
@@ -1711,7 +1739,8 @@ def phase_h264_ext(dev, card):
         log(f"phase 14 {name} ({w}x{h}, {len(recon_ms)} pictures): "
             f"{nframes} frames adler32+md5 identical to the golden, "
             f"{launches[0]} K1 frame launches, {cold_s:.2f} s first decode; "
-            f"recon ms per picture (synchronised) {per}{blend}; warm "
+            f"recon ms per picture (synchronised) {per}{blend}; "
+            f"{'first pass' if interlaced else 'warm'} "
             f"{nframes / warm_s:.3f} fps [{card}]")
 
     # K1 on the last PAFF field picture's padded planes and grids
@@ -2530,6 +2559,244 @@ def phase_mpeg12(dev, card):
             "decode_fps": dec_fps}
 
 
+def h264_ref_pictures(datas) -> int:
+    """The coded pictures (one per packet) whose first slice has a
+    nonzero nal_ref_idc: the H.264 encoder's closed loop reconstructs,
+    and with deblocking deblocks, each of them."""
+    n = 0
+    for d in datas:
+        for m in re.finditer(b"\x00\x00\x01", d):
+            hdr = d[m.end()]
+            if hdr & 0x1F in (1, 5):
+                n += (hdr >> 5) & 3 != 0
+                break
+    return n
+
+
+def stage_lines(tag, stages):
+    for label, ms in stages.items():
+        log(f"phase 18   {tag} {label}: "
+            f"{', '.join(f'{x:.2f}' for x in ms)} (sum {sum(ms):.1f})")
+
+
+def phase_h264_encode(dev, card):
+    """Phase 18: the H.264 and MJPEG encoders on the card (the pattern's
+    planes against the golden's adler32; the bench stream and the PAFF
+    stream re-encoded from the pattern byte for byte, with K1 once per
+    reference picture in the closed loop, and decoded by the port to the
+    JAX decoder's golden; the MJPEG stream byte for byte through the
+    native packer; K1 against deblock_frame_plain on the first reference
+    picture's closed-loop deblock; the CLI encodes against the JAX CLI's
+    md5; warm fps, stage ms per picture, K1's device time)."""
+    import hashlib
+    import torch
+    from libav_tpu_torch import testdata
+    from libav_tpu_torch.codecs.h264 import device as h264device
+    from libav_tpu_torch.codecs.mjpeg import enc as mjpeg_enc
+    from libav_tpu_torch.native import jpeg_enc
+    from libav_tpu_torch.ops import h264deblock
+    from libav_tpu_torch.tools import avconv
+    from libav_tpu_torch.tools import encode_probe as ep
+    t_phase = time.perf_counter()
+    gold = testdata.load_golden(testdata.encode_cli_golden_path())
+    for w, h, n in testdata.ENCODE_SOURCES:
+        for t, want in enumerate(gold["source"][f"{w}x{h}"]):
+            got = testdata.plane_adler32(testdata.pattern(w, h, t))
+            if got != want:
+                raise AssertionError(f"the pattern's {w}x{h} frame {t} "
+                                     f"planes {got} differ from the "
+                                     f"golden's {want}: numpy's sin/cos "
+                                     f"differ here")
+    k1, fps, seconds = {}, {}, {}
+
+    def encode(tag, frames, settings, want, codec="h264", encoders=None):
+        h264deblock.h264_deblock_frame.launches = 0
+        datas, secs = ep.encode(dev, frames, settings, codec=codec,
+                                encoders=encoders)
+        launches = h264deblock.h264_deblock_frame.launches
+        if len(datas) != len(want):
+            raise AssertionError(f"{tag}: {len(datas)} packets, the "
+                                 f"committed stream has {len(want)}")
+        for i, (g, w) in enumerate(zip(datas, want)):
+            if g != w:
+                raise AssertionError(f"{tag}: packet {i} differs from the "
+                                     f"committed stream's")
+        if codec == "h264":
+            refs = h264_ref_pictures(datas) if settings.get("deblock") \
+                else 0
+            if launches != refs:
+                raise AssertionError(f"{tag}: {launches} K1 launches, "
+                                     f"{refs} reference pictures deblocked")
+        return datas, secs, launches
+
+    # (a) the bench stream; the first closed-loop deblock's padded planes
+    # and grids kept as K1 found them, and the planes the loop kept
+    captured = []
+    forward = h264device.ReconH264Deblock.forward
+
+    def capture(self, *args, run=h264deblock.h264_deblock_frame, **kw):
+        def kept(*k1_args):
+            captured.append([a.clone() if isinstance(a, torch.Tensor)
+                             else a for a in k1_args])
+            return run(*k1_args)
+        result = forward(self, *args, run=kept if not captured else run,
+                         **kw)
+        if len(captured) == 1:
+            captured.append([p.clone() for p in result[0]])
+        return result
+    frames = ep.pattern_frames(dev, 1920, 1080, testdata.BENCH_FRAMES)
+    want = testdata.read_packets(testdata.SMOKE_STREAM)
+    h264device.ReconH264Deblock.forward = capture
+    try:
+        datas, cold_s, k1["h264 encode"] = encode(
+            "bench encode", frames, testdata.BENCH_SETTINGS, want)
+    finally:
+        h264device.ReconH264Deblock.forward = forward
+    host, _, _ = decode(dev, datas)
+    check_golden(host, testdata.load_golden(testdata.SMOKE_GOLDEN),
+                 "bench encode's decode")
+    # the warm pass is the staged one: every stage synchronised, which
+    # costs little where the host packer holds the card idle
+    with ep.stages(dev, "h264") as stages:
+        _, warm_s, _ = encode("bench warm encode", frames,
+                              testdata.BENCH_SETTINGS, want)
+    fps["h264_1080p_ipbb_cabac"] = len(frames) / warm_s
+    pack = sum(stages["host packing (slice headers + entropy)"])
+    log(f"phase 18 H.264 encode of {len(frames)} pattern frames 1920x1080 "
+        f"{testdata.BENCH_SETTINGS}: {len(datas)} packets "
+        f"({sum(map(len, datas))} bytes) byte-identical to "
+        f"h264_1080p_ipbb_cabac.h264pkts (the JAX encoder's), decoded by "
+        f"the port to its golden, {k1['h264 encode']} K1 launches (one per "
+        f"reference picture); first {cold_s:.2f} s, warm (staged) "
+        f"{fps['h264_1080p_ipbb_cabac']:.3f} fps ({warm_s:.2f} s), host "
+        f"packing {pack / 1e3:.2f} s ({100 * pack / (1e3 * warm_s):.1f}%) "
+        f"[{card}]")
+    stage_lines("bench", stages)
+    seconds["h264_1080p_ipbb_cabac"] = {"first": cold_s, "warm": warm_s,
+                                        "packing_ms": pack}
+
+    # (d) K1 against its plain version inside the encoder's loop: the
+    # first reference picture's deblock again through deblock_frame_plain
+    k1_args, kept_planes = captured
+    plain = [a.clone() for a in k1_args[:3]]
+    h264deblock.deblock_frame_plain(*plain, *k1_args[3:])
+    max_err = max(int((p[4:, 4:] - q.to(torch.int32)).abs().max())
+                  for p, q in zip(plain, kept_planes))
+    if max_err:
+        raise AssertionError(f"closed-loop deblock: K1 differs from "
+                             f"deblock_frame_plain by {max_err}")
+    work_planes = [a.clone() for a in k1_args[:3]]
+
+    def restore():
+        for w, a in zip(work_planes, k1_args[:3]):
+            w.copy_(a)
+
+    def launch():
+        h264deblock.h264_deblock_frame(*work_planes, *k1_args[3:])
+    k1_dev = kernel_device_ms(launch, "deblock_frame_kernel",
+                              h264deblock.h264_deblock_frame, reps=10,
+                              before=restore)
+    k1_sync = stages[ep.K1_LABEL]
+    log(f"phase 18 K1 in the encoder's closed loop (the I_8x8 picture's "
+        f"deblock, 120x68 MBs): equal to deblock_frame_plain, max_abs_err "
+        f"{max_err}; device {k1_dev:.4f} ms per launch on its padded "
+        f"planes and grids (profiler); "
+        f"synchronised per launch in the staged pass "
+        f"{', '.join(f'{x:.3f}' for x in k1_sync)} ms [{card}]")
+
+    # (b) PAFF: field pictures, K1 on field rules
+    name = "h264_1088i_paff"
+    w, h, n, settings = testdata.H264_EXT[name]
+    path, golden = testdata.stream_paths(name)
+    pframes = ep.pattern_frames(dev, w, h, n)
+    # one pass, staged: the bench encode above warmed every program but
+    # the I_4x4 wavefront's and the field deblock's
+    with ep.stages(dev, "h264") as pstages:
+        datas, cold_s, k1["paff encode"] = encode(
+            "paff encode", pframes, settings, testdata.read_packets(path))
+    host, _, _ = decode(dev, datas)
+    check_golden(host, testdata.load_golden(golden), "paff encode's decode")
+    fps[name] = n / cold_s
+    log(f"phase 18 H.264 PAFF encode of {n} pattern frames {w}x{h} "
+        f"{settings}: {len(datas)} field packets byte-identical to "
+        f"{name}.h264pkts, decoded by the port to its golden, "
+        f"{k1['paff encode']} K1 launches (field rules); one staged pass "
+        f"{fps[name]:.3f} fps ({cold_s:.2f} s) [{card}]")
+    stage_lines("paff", pstages)
+
+    # (c) MJPEG through the native packer
+    if not jpeg_enc.available():
+        raise AssertionError("the native JPEG packer did not build")
+    mframes = ep.pattern_frames(dev, 1920, 1080, 4, "yuvj420p")
+    mwant = testdata.read_packets(
+        testdata.stream_paths(testdata.MJPEG_SMOKE)[0])
+    encoders = []
+    encode("mjpeg encode", mframes, {"quality": 90}, mwant, "mjpeg",
+           encoders)
+    if encoders[0].packer != "native":
+        raise AssertionError(f"mjpeg: the {encoders[0].packer} packer ran")
+    mj = {}
+    timed = [(mjpeg_enc.EncodePlane, "forward", "planes (device, ms)"),
+             (mjpeg_enc.MJPEGEncoder, "_encode_scan", "native pack (ms)")]
+    saved = [(c, a, getattr(c, a)) for c, a, _ in timed]
+    for cls, attr, label in timed:
+        def wrap(*a, _f=getattr(cls, attr), _l=label, **k):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            r = _f(*a, **k)
+            torch.cuda.synchronize(dev)
+            mj.setdefault(_l, []).append(1e3 * (time.perf_counter() - t0))
+            return r
+        setattr(cls, attr, wrap)
+    try:
+        encoders = []
+        _, warm_s, _ = encode("mjpeg warm encode", mframes,
+                              {"quality": 90}, mwant, "mjpeg", encoders)
+    finally:
+        for cls, attr, inner in saved:
+            setattr(cls, attr, inner)
+    fps[testdata.MJPEG_SMOKE] = len(mframes) / warm_s
+    log(f"phase 18 MJPEG encode of 4 yuvj420p pattern frames 1920x1080 at "
+        f"quality 90: byte-identical to mjpeg_1080p.mjpegpkts, packer "
+        f"{encoders[0].packer}; warm (timed) {fps['mjpeg_1080p']:.3f} fps; "
+        + "; ".join(f"{k} {', '.join(f'{x:.2f}' for x in v)}"
+                    for k, v in mj.items()) + f" [{card}]")
+
+    # (e) the CLI encodes against the JAX CLI's md5
+    work = tempfile.mkdtemp()
+    cli_fps = {}
+    try:
+        for out, (src_name, args) in testdata.ENCODE_CLI.items():
+            src = testdata.write_cli_input(src_name, work)
+            dst = os.path.join(work, out)
+            h264deblock.h264_deblock_frame.launches = 0
+            _, err, secs = run_cli(avconv, ["-benchmark", "-i", src, *args,
+                                            dst], dev)
+            launches = h264deblock.h264_deblock_frame.launches
+            with open(dst, "rb") as f:
+                data = f.read()
+            if hashlib.md5(data).hexdigest() != gold["cli"][out]["md5"]:
+                raise AssertionError(f"avconv -i {os.path.basename(src)} "
+                                     f"{' '.join(args)} {out}: the output "
+                                     f"differs from the JAX CLI's")
+            cli_fps[out] = float(re.search(r"fps=([0-9.]+)", err).group(1))
+            k1[f"cli {out}"] = launches
+            log(f"phase 18 avconv -benchmark -i {os.path.basename(src)} "
+                f"{' '.join(args)} {out}: {len(data)} bytes md5-identical "
+                f"to the JAX CLI's, {launches} K1 launches; CLI "
+                f"{cli_fps[out]} fps ({secs:.2f} s wall) [{card}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if k1["cli out.avi"] != testdata.BENCH_FRAMES or not k1["cli out.h264"]:
+        raise AssertionError(f"CLI K1 launches {k1}")
+
+    log(f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return {"k1": k1, "fps": fps, "cli_fps": cli_fps, "seconds": seconds,
+            "k1_closed_loop": {"max_abs_err": max_err,
+                               "device_ms": k1_dev,
+                               "synchronised_ms": k1_sync}}
+
+
 def probe_record(name, source, line, what, probe, l2, library):
     """The kernels-line entry of P1 or P2 from phase 7's results."""
     times = probe["times"]
@@ -2663,6 +2930,7 @@ def main():
     cont = phase_containers(dev, card)
     filters = phase_filters(dev, card, cli_fps, config5)
     mpeg12 = phase_mpeg12(dev, card)
+    encode18 = phase_h264_encode(dev, card)
     runs = filters["runs"]
     k2_paths = {"mpeg2 decodes": k2_launches, "mjpeg decode": mjpeg_launches,
                 "mpeg4 encode": mpeg4["launches"],
@@ -2676,17 +2944,20 @@ def main():
     k1_49k, p2_49k = probe["l2"]["K1 lines"], probe["l2"]["P2"]
     k2_encode = f"{mpeg4['k2_device_ms']} ms"
     d = deblock["part=True"]
-    frame_entry = deblock_record("h264_deblock_frame", "frame", launches[0],
-                                 max(max_err, ext["field"]["max_abs_err"]),
-                                 d)
+    frame_entry = deblock_record(
+        "h264_deblock_frame", "frame", launches[0],
+        max(max_err, ext["field"]["max_abs_err"],
+            encode18["k1_closed_loop"]["max_abs_err"]), d)
     frame_entry["launches_by_path"] = {
         "bench decode": launches[0], **ext["launches"],
         "mp4 decode": cont["mp4_decode"]["k1"],
         "mkv to mp4 transcode": cont["transcode"]["k1"],
         **{f"filter run {run}": runs[run]["K1"]
            for run in ("B_pixel", "C_rgb", "D_overlay", "E_interlace",
-                       "E_fps")}}
+                       "E_fps")},
+        **encode18["k1"]}
     frame_entry["field_picture"] = ext["field"]
+    frame_entry["encoder_closed_loop"] = encode18["k1_closed_loop"]
     record = {"kernels": [
         frame_entry,
         deblock_record("h264_deblock_wave", "wave", launches[1], max_err, d),

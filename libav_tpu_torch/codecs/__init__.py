@@ -6,8 +6,8 @@ of the JAX package's host code, and their device halves are the port's
 PyTorch programs and hand kernels. Decoders take their torch device as a
 keyword, "cuda" by default: `find_decoder(codec_id)(params,
 device="cpu")` runs them on the CPU; so does an encoder with a device part
-(`DEVICE_PART`: the MPEG-1/2 and MPEG-4 encoders, and the AAC and AC-3
-encoders with their MDCT on the device). The audio decoders (AAC with its IMDCT on the
+(`DEVICE_PART`: the H.264, MJPEG, MPEG-1/2 and MPEG-4 encoders, and the
+AAC and AC-3 encoders with their MDCT on the device). The audio decoders (AAC with its IMDCT on the
 device; AC-3/E-AC-3, MP1/2/3, FLAC and PCM on the host) hand out host
 sample planes; the MP1/2/3 and FLAC encoders run on the host.
 """

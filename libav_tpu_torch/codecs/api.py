@@ -76,7 +76,6 @@ NOT_PORTED = {
 
 # encoder id -> the ROADMAP.md module-queue step that ports its device part
 ENCODER_STEPS = {
-    "h264": "7", "mjpeg": "9",
     "prores": "11", "ffv1": "15",
 }
 

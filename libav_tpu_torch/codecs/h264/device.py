@@ -1,6 +1,6 @@
 """H.264 device reconstruction program (counterpart of
-`libav_tpu/codecs/h264/device.py` recon_h264_jit, recon_h264_sparse_jit
-and zero_refs_h264).
+`libav_tpu/codecs/h264/device.py` recon_h264_jit, recon_h264_sparse_jit,
+recon_h264_deblock_jit and zero_refs_h264).
 
 The stages per frame are the JAX package's:
   1. residual: sparse coefficient scatter, dequant, luma/chroma DC
@@ -42,7 +42,8 @@ from libav_tpu_torch.codecs.h264 import sets
 from libav_tpu_torch.codecs.h264.cavlc import SCAN4x4
 from libav_tpu_torch.ops import h264mc, h264pred
 from libav_tpu_torch.ops.h264deblock import (chroma_qp_table,
-                                             deblock_frame_exact)
+                                             deblock_frame_exact,
+                                             h264_deblock_frame)
 from libav_tpu_torch.ops.h264transform import (chroma_dc_2x2, hadamard4x4,
                                                idct4x4, idct8x8_h264)
 from libav_tpu_torch.ops.mc import EDGE, pad_plane
@@ -633,6 +634,48 @@ class ReconH264Sparse(nn.Module):
         return planes, padded
 
 
+class ReconH264Deblock(nn.Module):
+    """Dense-input recon + in-loop deblocking of one picture: the JAX
+    recon_h264_deblock_jit program, the H.264 encoder's closed-loop
+    reference path when deblocking is on (the decoder deblocks in
+    ReconH264Sparse). The deblock's edges go through `run`, K1
+    (h264_deblock_frame) by default: one launch per picture on the card,
+    deblock_frame_plain on CPU tensors."""
+
+    def __init__(self, mb_w: int, mb_h: int, any_intra: bool = True,
+                 any_i4: bool = False, any_t8: bool = False,
+                 any_i8: bool = False, any_ipcm: bool = False,
+                 field: bool = False, cdy: int = 0, *,
+                 device: torch.device):
+        super().__init__()
+        self.dense = recon_h264(mb_w, mb_h, any_intra, 1, any_i4,
+                                any_t8=any_t8, any_i8=any_i8,
+                                any_ipcm=any_ipcm, any_cdy=bool(cdy),
+                                device=device)
+        self.deblock = deblock_frame_exact(mb_w, mb_h, any_t8=any_t8,
+                                           field=field)
+        self.nmb, self.cdy, self.any_t8 = mb_w * mb_h, cdy, any_t8
+
+    def forward(self, intra, luma_mode, chroma_mode, mv, qp, luma_dc,
+                luma_ac, chroma_dc, chroma_ac, nnz, ry, ru, rv, i4=None,
+                i4_modes=None, t8=None, ipcm=None, ipcm_y=None, ipcm_u=None,
+                ipcm_v=None, run=h264_deblock_frame):
+        """-> (y, u, v) deblocked uint8 planes, and the same edge-padded
+        by EDGE."""
+        cdy = (torch.full((self.nmb,), self.cdy, dtype=torch.int32,
+                          device=intra.device) if self.cdy else None)
+        planes, _ = self.dense(intra, luma_mode, chroma_mode, mv, qp,
+                               luma_dc, luma_ac, chroma_dc, chroma_ac, ry,
+                               ru, rv, i4=i4, i4_modes=i4_modes, t8=t8,
+                               ipcm=ipcm, ipcm_y=ipcm_y, ipcm_u=ipcm_u,
+                               ipcm_v=ipcm_v, cdy=cdy)
+        kw = {"t8": t8} if self.any_t8 else {}
+        planes = tuple(p.to(torch.uint8) for p in self.deblock(
+            *(p.to(torch.int32) for p in planes), intra, qp, nnz, mv,
+            run=run, **kw))
+        return planes, tuple(pad_plane(p) for p in planes)
+
+
 @functools.lru_cache(maxsize=16)
 def recon_h264(mb_w: int, mb_h: int, any_intra: bool = True, nrefs: int = 1,
                any_i4: bool = False, bpred: bool = False,
@@ -663,6 +706,18 @@ def recon_h264_sparse(mb_w: int, mb_h: int, any_intra: bool, ycap: int,
                            nrefs, db_offsets, any_i4, bpred, part, nrefs1,
                            weighted, wmat, cqpo, any_t8, any_i8, any_ipcm,
                            field, any_cdy, any_ydc, any_cdc, device=device)
+
+
+@functools.lru_cache(maxsize=16)
+def recon_h264_deblock(mb_w: int, mb_h: int, any_intra: bool = True,
+                       any_i4: bool = False, any_t8: bool = False,
+                       any_i8: bool = False, any_ipcm: bool = False,
+                       field: bool = False, cdy: int = 0, *,
+                       device: torch.device) -> ReconH264Deblock:
+    """recon_h264_deblock_jit's key plus the device -> the module on
+    device."""
+    return ReconH264Deblock(mb_w, mb_h, any_intra, any_i4, any_t8, any_i8,
+                            any_ipcm, field, cdy, device=device).to(device)
 
 
 @functools.lru_cache(maxsize=8)

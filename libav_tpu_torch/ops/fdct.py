@@ -27,6 +27,7 @@ from libav_tpu_torch.ops.idct import idct_matrix_int
 
 FDCT_ROW_SHIFT = 14
 FDCT_COL_SHIFT = 14
+FDCT_OUT_SCALE = 8  # output = 8 x orthonormal DCT-II
 
 
 def fdct_matrix_int() -> np.ndarray:

@@ -2,9 +2,9 @@
 mismatch control, the MPEG-4 DC scaler and the scans (counterpart of
 `libav_tpu/ops/quant.py` mpeg1_dequant_intra/inter,
 mpeg2_dequant_intra/inter, mpeg2_mismatch_control, h263_dequant,
-mpeg4_dc_scaler, mpeg4_mq_dequant_intra/inter and dezigzag; reference:
-mpegvideo.c dct_unquantize_mpeg1_* / _mpeg2_* / _h263_* and the bitexact
-MPEG-4 matrix pair). The JAX module's encoder-side `mpeg_quant` has no
+mpeg4_dc_scaler, mpeg4_mq_dequant_intra/inter, dezigzag and the JPEG
+encoder's jpeg_quant; reference: mpegvideo.c dct_unquantize_mpeg1_* /
+_mpeg2_* / _h263_* and the bitexact MPEG-4 matrix pair). The JAX module's encoder-side `mpeg_quant` has no
 caller in the port and is left out.
 
 Elementwise int32 over (B, 64) coefficients, as in the JAX package: with
@@ -81,6 +81,22 @@ def dezigzag(coeffs_scan_order: torch.Tensor,
         pos = raster_positions().to(coeffs_scan_order.device)
     return coeffs_scan_order[..., pos].reshape(
         *coeffs_scan_order.shape[:-1], 8, 8)
+
+
+def jpeg_quant_ref(coeffs: np.ndarray, qmat: np.ndarray) -> np.ndarray:
+    """Golden: round-half-away division (JPEG Annex encoder convention)."""
+    c = coeffs.astype(np.int64)
+    q = qmat.astype(np.int64)
+    return (np.sign(c) * ((np.abs(c) + q // 2) // q)).astype(np.int32)
+
+
+def jpeg_quant(coeffs: torch.Tensor, qmat: torch.Tensor) -> torch.Tensor:
+    """sign(c) * ((|c| + q // 2) // q), int32 (the JAX package's
+    jpeg_quant); qmat broadcasts against coeffs."""
+    c = coeffs.to(torch.int32)
+    q = qmat.to(torch.int32)
+    return torch.sign(c) * torch.div(c.abs() + q // 2, q,
+                                     rounding_mode="floor")
 
 
 def _operands(coeffs, qscale, qmat):

@@ -107,6 +107,30 @@ LEGACY = {
 }
 
 
+# the H.264 encoder's settings of the bench stream (h264_1080p_ipbb_cabac:
+# 8 frames of the pattern at 1920x1080), a copy of bench.py ENC_SETTINGS
+# (the port reads no file of the JAX side; a CPU test holds the two equal)
+BENCH_SETTINGS = dict(qp=28, gop_size=8, entropy="cabac", i8x8=1, dct8x8=1,
+                      b_frames=2, deblock=1, slices=4)
+BENCH_FRAMES = 8
+# the encoders through the CLI (encode_cli.golden.json): output name ->
+# (input, arguments); the golden holds the md5 of the JAX CLI's output of
+# each and the source planes' adler32 of the pattern frames that the
+# H.264 encodes of the smoke run take (1920x1080 x 8, 1920x1088 x 4)
+ENCODE_CLI = {
+    "out.h264": ("mpeg2_1080p_ipbb", (
+        "-c:v", "h264", "-qp", "28", "-g", "8", "-entropy", "cabac",
+        "-i8x8", "1", "-dct8x8", "1", "-bf", "2", "-deblock", "1",
+        "-slices", "4")),
+    "out.avi": ("h264_1080p_ipbb_cabac", ("-c:v", "mjpeg", "-q:v", "4")),
+}
+ENCODE_SOURCES = ((1920, 1080, 8), (1920, 1088, 4))
+
+
+def encode_cli_golden_path() -> str:
+    return os.path.join(HERE, "encode_cli.golden.json")
+
+
 def mpeg12_golden_path() -> str:
     return os.path.join(HERE, MPEG12_ENCODE + ".golden.json")
 

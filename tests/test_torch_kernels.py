@@ -272,6 +272,54 @@ class TestKernelsOnCard:
         assert launches == (n if b_frames == 0 else 3)
 
     @pytest.mark.parametrize("settings", [
+        testdata.BENCH_SETTINGS, testdata.H264_EXT["h264_1088i_paff"][3],
+        {"entropy": "cabac", "i4x4": 1, "deblock": 1, "refs": 1}])
+    def test_h264_encode(self, settings):
+        """The H.264 encoder on the card gives the CPU's packets, with one
+        K1 launch per reference picture of its closed loop."""
+        from libav_tpu_torch.avutil.frame import Frame
+        from libav_tpu_torch.codecs.api import CodecParameters, MediaType
+        from libav_tpu_torch.codecs.h264 import H264Encoder
+        w, h, n = 64, 64, 5
+        frames = []
+        for t in range(n):
+            f = Frame(width=w, height=h, format="yuv420p")
+            f.planes = list(testdata.pattern(w, h, t))
+            f.pts = t
+            frames.append(f)
+        par = CodecParameters(codec_type=MediaType.VIDEO, codec_id="h264",
+                              width=w, height=h, pix_fmt="yuv420p")
+        out = {}
+        for dev in ("cpu", "cuda"):
+            enc = H264Encoder(par, device=dev)
+            for k, v in settings.items():
+                enc.set_opt(k, v)
+            before = tdb.h264_deblock_frame.launches
+            out[dev] = [p.data for p in enc.encode_all(frames)]
+            launches = tdb.h264_deblock_frame.launches - before
+        assert out["cuda"] == out["cpu"]
+        # packets whose first NAL has a nonzero nal_ref_idc: not B
+        refs = sum(1 for d in out["cuda"]
+                   if d[d.index(b"\x00\x00\x01") + 3] & 0x60)
+        assert launches == (refs if settings.get("deblock") else 0) > 0
+
+    def test_mjpeg_encode(self):
+        """The MJPEG encoder's plane program on the card gives the CPU's
+        packets."""
+        from libav_tpu_torch.avutil.frame import Frame
+        from libav_tpu_torch.codecs.api import CodecParameters, MediaType
+        from libav_tpu_torch.codecs.mjpeg import MJPEGEncoder
+        w, h = 70, 38
+        f = Frame(width=w, height=h, format="yuvj420p")
+        f.planes = list(testdata.pattern(w, h, 3))
+        f.pts = 0
+        par = CodecParameters(codec_type=MediaType.VIDEO, codec_id="mjpeg",
+                              width=w, height=h, pix_fmt="yuvj420p")
+        out = [MJPEGEncoder(par, device=dev).encode_all([f])[0].data
+               for dev in ("cpu", "cuda")]
+        assert out[0] == out[1]
+
+    @pytest.mark.parametrize("settings", [
         {"qpel": 1, "mpegq": 1, "acpred": 1},
         {"gmc": 3, "b_frames": 2},
         {"gmc": 1, "gmc_acc": 1},

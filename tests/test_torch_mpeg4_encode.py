@@ -407,8 +407,8 @@ def test_encoder_runs_on_the_card_unless_told():
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             enc(par)
-    with pytest.raises(AVError, match="step 7"):
-        find_encoder("h264")
+    with pytest.raises(AVError, match="step 11"):
+        find_encoder("prores")
 
 
 def test_encode_probe_stages():

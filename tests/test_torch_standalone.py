@@ -356,3 +356,59 @@ print("ok")
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]
     for name in runs:
         assert (tmp_path / ("port_" + name)).read_bytes() == want[name], name
+
+
+def test_sources_cover_the_encoder_slice():
+    """The H.264 and MJPEG encoders' modules are in the scan."""
+    for path in ("codecs/h264/enc.py", "codecs/h264/encdev.py",
+                 "codecs/mjpeg/enc.py", "native/jpeg_enc.py",
+                 "ops/h264transform.py", "ops/quant.py"):
+        assert "libav_tpu_torch/" + path in SOURCES
+
+
+def test_encoders_with_jax_package_refused(tmp_path):
+    """The port's H.264 encoder (CABAC, I_8x8, 8x8 transform, deblock) and
+    MJPEG encoder run in a process where jax and libav_tpu cannot be
+    imported: the JAX encoders' packets."""
+    from tools.gen_torch_smoke_stream import encode
+    h264 = {"entropy": "cabac", "i8x8": 1, "dct8x8": 1, "deblock": 1}
+    want = {"h264": encode(48, 32, 3, "h264", h264),
+            "mjpeg": encode(40, 24, 2, "mjpeg", {"quality": 80},
+                            "yuvj420p")}
+    code = IMPORT_GUARD + f"""
+import hashlib, json
+import torch
+torch.set_num_threads(1)
+from libav_tpu_torch import testdata
+from libav_tpu_torch.avutil.frame import Frame
+from libav_tpu_torch.avutil.rational import Rational
+from libav_tpu_torch.codecs.api import (CodecParameters, MediaType,
+                                        find_encoder)
+out = {{}}
+for codec, settings, w, h, n, fmt in (
+        ("h264", {h264!r}, 48, 32, 3, "yuv420p"),
+        ("mjpeg", {{"quality": 80}}, 40, 24, 2, "yuvj420p")):
+    par = CodecParameters(codec_type=MediaType.VIDEO, codec_id=codec,
+                          width=w, height=h, pix_fmt=fmt,
+                          framerate=Rational(25, 1))
+    enc = find_encoder(codec)(par, device="cpu")
+    for k, v in settings.items():
+        enc.set_opt(k, v)
+    frames = []
+    for t in range(n):
+        f = Frame.alloc_video(w, h, fmt)
+        f.planes[:3] = testdata.pattern(w, h, t)
+        f.pts = t
+        frames.append(f)
+    out[codec] = [p.data.hex() for p in enc.encode_all(frames)]
+loaded = sorted(m for m, v in sys.modules.items() if v is not None
+                and m.split(".")[0] in {REFUSED!r})
+assert loaded == [], loaded
+print(json.dumps(out))
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600, cwd=str(tmp_path))
+    assert r.returncode == 0, r.stderr[-3000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    for codec in want:
+        assert [bytes.fromhex(d) for d in got[codec]] == want[codec], codec

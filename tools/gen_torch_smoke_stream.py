@@ -71,6 +71,10 @@ package's decoder, and written with its golden into
             each packet's size and md5 and each anchor's reconstruction,
             the source planes' adler32, and the md5 of the JAX CLI's
             testdata.MPEG12_CLI runs on bench.h264 (~10 min)
+    h264enc encode_cli.golden.json: the md5 of the JAX CLI's output for
+            testdata.ENCODE_CLI (the committed ipbb.m2v to H.264 with the
+            bench settings; bench.h264 to MJPEG in AVI) and the adler32 of
+            the pattern planes of testdata.ENCODE_SOURCES (~3 min)
     legacy  testdata.LEGACY's streams from tools/legacy_streams.py (H.263
             16CIF as .263; FLV1, MSMPEG4 v3, v2 and WMV1 at 1280x720 in
             FLV and AVI; 6 pictures each), legacy.golden.json with the JAX
@@ -84,7 +88,8 @@ framecrc, mpeg4 and config5 need the streams written first):
 
     JAX_PLATFORMS=cpu python tools/gen_torch_smoke_stream.py \
         [h264] [mpeg2] [mjpeg] [small] [framecrc] [mpeg4] [mpeg4asp] \
-        [h264ext] [config5] [containers] [filters] [mpeg12enc] [legacy]
+        [h264ext] [config5] [containers] [filters] [mpeg12enc] [legacy] \
+        [h264enc]
 """
 
 from __future__ import annotations
@@ -698,6 +703,35 @@ def write_mpeg4_asp():
     print(f"{testdata.MPEG4_ASP}: goldens written")
 
 
+def write_encode_cli():
+    """encode_cli.golden.json: the source planes' adler32 of the pattern
+    frames the smoke run's H.264 encodes take, and the md5 of the JAX
+    CLI's output for each testdata.ENCODE_CLI run."""
+    import hashlib
+    from libav_tpu.tools import avconv
+    gold = {"source": {f"{w}x{h}": [testdata.plane_adler32(
+        testdata.pattern(w, h, t)) for t in range(n)]
+        for w, h, n in testdata.ENCODE_SOURCES}, "cli": {}}
+    work = tempfile.mkdtemp()
+    try:
+        for out, (name, args) in testdata.ENCODE_CLI.items():
+            src = testdata.write_cli_input(name, work)
+            dst = os.path.join(work, out)
+            if avconv.main(["-i", src, *args, dst]) != 0:
+                raise SystemExit(f"avconv {' '.join(args)} {out} failed")
+            with open(dst, "rb") as f:
+                data = f.read()
+            gold["cli"][out] = {"input": os.path.basename(src),
+                                "args": list(args), "size": len(data),
+                                "md5": hashlib.md5(data).hexdigest()}
+            print(f"CLI {out}: {len(data)} bytes")
+    finally:
+        shutil.rmtree(work)
+    with open(testdata.encode_cli_golden_path(), "w") as f:
+        json.dump(gold, f, indent=1)
+        f.write("\n")
+
+
 def main(which):
     if "h264" in which:
         write(testdata.SMOKE_STREAM, testdata.SMOKE_GOLDEN,
@@ -738,9 +772,12 @@ def main(which):
         write_mpeg12()
     if "legacy" in which:
         write_legacy()
+    if "h264enc" in which:
+        write_encode_cli()
 
 
 if __name__ == "__main__":
     main(sys.argv[1:] or ("h264", "mpeg2", "mjpeg", "small", "framecrc",
                           "mpeg4", "mpeg4asp", "h264ext", "config5",
-                          "containers", "filters", "mpeg12enc", "legacy"))
+                          "containers", "filters", "mpeg12enc", "legacy",
+                          "h264enc"))
