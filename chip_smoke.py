@@ -30,10 +30,10 @@ Phases, in order; any failure exits nonzero and prints no result:
      (send_packet / receive_frame / drain), holds every frame's adler32
      and md5 against the golden that the JAX package produced, checks
      that the frame deblock kernel ran once per frame and the wave kernel
-     and the line kernel never, then times a warm second decode; then
-     decodes it twice more, the deblock through the wave kernel and then
-     the frame kernel, each golden-identical, with the I and P/B frames'
-     recon ms beside each other;
+     and the line kernel never, then times a warm second decode (recon
+     synchronised per frame); then decodes it once more with the deblock
+     through the wave kernel, golden-identical, its I and P/B frames'
+     recon ms beside the warm decode's;
   5. K2: idct8x8_int against the plain idct8x8_int_plain on the card
      (DC-only rows, all-zero blocks, values outside int16, rows whose
      sums overflow int32), exact, at every block count the main paths
@@ -101,9 +101,9 @@ Phases, in order; any failure exits nonzero and prints no result:
  13. MPEG-4 ASP decode: phase 10's 7 packets through the port's
      MPEG4Decoder on the card, every frame's adler32 and md5 equal to the
      JAX decoder's golden, the 3 anchors equal to the encoder's
-     reconstruction, K2 launched once per coded VOP; a warm decode (fps)
-     and one with each VOP's recon program synchronised (the upload of
-     its MB arrays and the Recon module, ms by VOP type; host share);
+     reconstruction, K2 launched once per coded VOP; a warm decode with
+     each VOP's recon program synchronised (fps; the upload of its MB
+     arrays and the Recon module, ms by VOP type; host share);
      then phase 10's frames encoded three more times on the card
      (A: qpel + mpegq + acpred, no B-VOPs; B: GMC with 3 warping points
      and B-VOPs; C: 8192-byte video packets, data partitioning, satd),
@@ -122,8 +122,8 @@ Phases, in order; any failure exits nonzero and prints no result:
      to the JAX decoder's golden, K1's frame kernel launched once per
      deblocked picture (two per PAFF frame, none for MBAFF) and the wave
      kernel never; recon ms per picture by type, the weighted blend's ms
-     per weighted picture (synchronised), a warm decode's fps (the first,
-     synchronised decode's for PAFF and MBAFF); K1 on the
+     per weighted picture (synchronised), each stream's fps from that
+     one synchronised decode; K1 on the
      last PAFF field picture's padded planes and grids (120x34 MBs)
      against deblock_frame_plain, exact, with its time per call, its
      device time warm and cold and its bound; and the port's avconv
@@ -199,8 +199,8 @@ Phases, in order; any failure exits nonzero and prints no result:
      B-frames, deblock, 4 slices), every packet byte-identical to
      h264_1080p_ipbb_cabac.h264pkts (the JAX encoder's), with K1 launched
      once per reference picture of the closed loop, and decodes them with
-     the port's H264Decoder to the stream's golden; a warm encode (fps)
-     with every stage synchronised (the I_8x8 wavefront, the P and B
+     the port's H264Decoder to the stream's golden, that one encode with
+     every stage synchronised (fps; the I_8x8 wavefront, the P and B
      search + transform/quant programs, the download, host packing, the
      closed-loop reference and K1 in it, ms per picture);
      the first reference picture's closed-loop deblock (its padded planes
@@ -213,14 +213,35 @@ Phases, in order; any failure exits nonzero and prints no result:
      mjpeg_1080p.mjpegpkts through the native packer (asserted built);
      the port's avconv `-benchmark` encoding ipbb.m2v to H.264 with the
      bench options and bench.h264 to MJPEG in AVI, md5-identical to the
-     JAX CLI's.
+     JAX CLI's;
+ 19. ProRes and FFV1 (steps 11 and 15): the sources' planes against
+     prores.golden.json's and ffv1.golden.json's adler32 first;
+     prores_idct and fdct10 on 65,280 seeded blocks (a 1080p 4:2:2
+     picture) against the numpy goldens, exact (dequant products past
+     int16, DC-only blocks, row sums past int32, samples at 0 and 1023),
+     each one's ms by CUDA events, launches and byte bound; two 1920x1080
+     yuv422p10le frames of testdata.pattern10 through the port's
+     ProresEncoder on the card (standard profile, rate-controlled), each
+     packet's md5 and size equal to the JAX encoder's golden, then
+     through its ProresDecoder, every frame's adler32 and md5 equal to
+     the JAX decoder's golden; per picture the FDCT, host rate control,
+     packing, host entropy and recon ms, and the recon and FDCT programs
+     of one picture by CUDA events with their launches; the same frames'
+     8-bit source through FFV1 (range coder, 5-gradient context, the
+     second a non-key frame), packets golden, the decode on the card
+     equal to the source; the port's avconv `-benchmark` from 10-bit
+     rawvideo (`-frames:v 1 -c:v prores out.mov`) and from ipbb.m2v
+     (`-frames:v 2 -c:v ffv1 out.avi`), each md5-identical to the JAX
+     CLI's, with `-i <out> -f framecrc` identical to the JAX CLI's (the
+     .avi's frames equal to ipbb.m2v's first two), each run's fps.
 Profiled windows (the kernels' device times, phases 6 and 10's busy
 shares, kernel_probe in phase 7) count the launches of the hand kernel
 they hold against its wrapper's count: torch.profiler on the card loses
 device events, so the times are per held launch, a busy share from a
 window that lost some is logged as a low reading, and a window that holds
 none is taken again and then fails the run.
-The last two lines are the kernels' JSON record and the result JSON.
+The whole run's time is printed before the last two lines, which are
+the kernels' JSON record and the result JSON.
 """
 
 import contextlib
@@ -618,16 +639,13 @@ def decode(dev, datas, time_recon=False):
 
 
 @contextlib.contextmanager
-def deblock_path(path):
-    """Decodes inside run the frame deblock through the frame kernel
-    ("frame", the decoder's path) or the 254-wave loop ("wave"): the
-    H.264 decoder's programs are wrapped so their deblock passes
+def wave_deblock():
+    """Decodes inside run the frame deblock through the 254-wave loop in
+    place of the frame kernel (the decoder's path): the H.264 decoder's
+    programs are wrapped so their deblock passes
     run=deblock_frame_waves. Measurement only."""
     from libav_tpu_torch.codecs.h264 import device as tdev
     from libav_tpu_torch.ops import h264deblock as db
-    if path == "frame":
-        yield
-        return
     build = tdev.recon_h264_sparse
 
     def waves(*key, **kw):
@@ -686,7 +704,7 @@ def phase_decode(dev, card):
         f"(synchronised): {per}")
 
     n0, s0 = h264dec.host_entropy_stats()
-    host, warm_s, _ = decode(dev, datas)
+    host, warm_s, warm_recon = decode(dev, datas, time_recon=True)
     n1, s1 = h264dec.host_entropy_stats()
     check_golden(host, gold, "second decode")
     DECODED["h264_1080p_ipbb_cabac"] = host[:2]
@@ -697,24 +715,20 @@ def phase_decode(dev, card):
         f"{n1 - n0} access units, native CABAC "
         f"{h264dec.native_cabac_available()} [{card}]")
 
-    # the same decode with the deblock through the wave kernel, in turns:
-    # per-frame recon synchronised, the I frame apart
-    recon = {"wave": [], "frame": []}
-    for path in ("wave", "frame"):
-        with deblock_path(path):
-            host, seconds, per = decode(dev, datas, time_recon=True)
-        check_golden(host, gold, f"decode through the {path} kernel")
+    # the same decode with the deblock through the wave kernel, beside
+    # the warm decode through the frame kernel: per-frame recon
+    # synchronised, the I frame apart
+    with wave_deblock():
+        host, wave_s, wave_recon = decode(dev, datas, time_recon=True)
+    check_golden(host, gold, "decode through the wave kernel")
+    for path, per, seconds in (("wave", wave_recon, wave_s),
+                               ("frame", warm_recon, warm_s)):
         pb = [ms for pt, ms in per if pt != 1]
         i_ms = sum(ms for pt, ms in per if pt == 1)
-        recon[path].append((sum(pb) / len(pb), i_ms, seconds))
         log(f"phase 4 decode, deblock through the {path} kernel: golden; "
-            f"{seconds:.3f} s, I recon {i_ms:.1f} ms, P/B recon ms "
-            f"(synchronised): {', '.join(f'{ms:.1f}' for ms in pb)}")
-    for path, runs in recon.items():
-        log(f"phase 4 {path} kernel: mean P/B recon "
-            f"{', '.join(f'{r[0]:.2f}' for r in runs)} ms, I recon "
-            f"{', '.join(f'{r[1]:.1f}' for r in runs)} ms, decode "
-            f"{', '.join(f'{r[2]:.3f}' for r in runs)} s")
+            f"{seconds:.3f} s, I recon {i_ms:.1f} ms, mean P/B recon "
+            f"{sum(pb) / len(pb):.2f} ms (synchronised: "
+            f"{', '.join(f'{ms:.1f}' for ms in pb)})")
     return launches, fps
 
 
@@ -1376,12 +1390,12 @@ def phase_mpeg4_decode(dev, card, mpeg4):
         f"equal to the encoder's reconstruction, {first_launches} K2 "
         f"launches; first decode {first_s:.2f} s, upload + recon module ms "
         f"per VOP (synchronised): {spans_by_vop(types, spans)}")
-    host, warm_s, launches, _ = decode_mpeg4(dev, pkts)
+    # the warm pass is the timed one (each VOP's program synchronised)
+    host, timed_s, launches, spans = decode_mpeg4(dev, pkts, True)
     check(host, gold["phase10_decode"], "mpeg4 warm decode", launches)
-    _, timed_s, _, spans = decode_mpeg4(dev, pkts, True)
-    fps = nvops / warm_s
+    fps = nvops / timed_s
     pct = {k: sum(ms) / (10 * timed_s) for k, ms in spans.items()}
-    log(f"phase 13 warm decode: {fps:.3f} fps ({1e3 * warm_s / nvops:.1f} "
+    log(f"phase 13 warm decode: {fps:.3f} fps ({1e3 * timed_s / nvops:.1f} "
         f"ms/frame); timed pass {timed_s:.2f} s, upload + recon module by "
         f"VOP type (synchronised ms): {spans_by_vop(types, spans)}; of the "
         f"wall time upload {pct['program'] - pct['recon']:.1f}%, recon "
@@ -1721,14 +1735,9 @@ def phase_h264_ext(dev, card):
                                  f"h264_deblock_wave launched {launches} "
                                  f"times, expected ({pictures}, 0)")
         out["launches"][name] = launches[0]
-        # the interlaced streams (20 s a decode) are decoded once: their
-        # fps is the first, synchronised pass's
-        interlaced = opts.get("fieldpic") or opts.get("mbaff")
-        if interlaced:
-            warm_s = cold_s
-        else:
-            host, warm_s, _ = decode(dev, datas)
-            check_golden(host, gold, f"{name} second decode")
+        # each stream is decoded once: its fps is the first,
+        # synchronised pass's (the bench stream's warm decode, phase 4,
+        # gives the decoder's warm rate)
         by_type = {}
         for pt, ms in recon_ms:
             by_type.setdefault(names.get(pt, pt), []).append(ms)
@@ -1740,8 +1749,7 @@ def phase_h264_ext(dev, card):
             f"{nframes} frames adler32+md5 identical to the golden, "
             f"{launches[0]} K1 frame launches, {cold_s:.2f} s first decode; "
             f"recon ms per picture (synchronised) {per}{blend}; "
-            f"{'first pass' if interlaced else 'warm'} "
-            f"{nframes / warm_s:.3f} fps [{card}]")
+            f"first pass {nframes / cold_s:.3f} fps [{card}]")
 
     # K1 on the last PAFF field picture's padded planes and grids
     pads, grids, args = field[0][:3], field[0][3], field[0][4:]
@@ -2646,33 +2654,31 @@ def phase_h264_encode(dev, card):
         return result
     frames = ep.pattern_frames(dev, 1920, 1080, testdata.BENCH_FRAMES)
     want = testdata.read_packets(testdata.SMOKE_STREAM)
+    # one pass, staged: every stage synchronised, which costs little
+    # where the host packer holds the card idle
     h264device.ReconH264Deblock.forward = capture
     try:
-        datas, cold_s, k1["h264 encode"] = encode(
-            "bench encode", frames, testdata.BENCH_SETTINGS, want)
+        with ep.stages(dev, "h264") as stages:
+            datas, staged_s, k1["h264 encode"] = encode(
+                "bench encode", frames, testdata.BENCH_SETTINGS, want)
     finally:
         h264device.ReconH264Deblock.forward = forward
     host, _, _ = decode(dev, datas)
     check_golden(host, testdata.load_golden(testdata.SMOKE_GOLDEN),
                  "bench encode's decode")
-    # the warm pass is the staged one: every stage synchronised, which
-    # costs little where the host packer holds the card idle
-    with ep.stages(dev, "h264") as stages:
-        _, warm_s, _ = encode("bench warm encode", frames,
-                              testdata.BENCH_SETTINGS, want)
-    fps["h264_1080p_ipbb_cabac"] = len(frames) / warm_s
+    fps["h264_1080p_ipbb_cabac"] = len(frames) / staged_s
     pack = sum(stages["host packing (slice headers + entropy)"])
     log(f"phase 18 H.264 encode of {len(frames)} pattern frames 1920x1080 "
         f"{testdata.BENCH_SETTINGS}: {len(datas)} packets "
         f"({sum(map(len, datas))} bytes) byte-identical to "
         f"h264_1080p_ipbb_cabac.h264pkts (the JAX encoder's), decoded by "
         f"the port to its golden, {k1['h264 encode']} K1 launches (one per "
-        f"reference picture); first {cold_s:.2f} s, warm (staged) "
-        f"{fps['h264_1080p_ipbb_cabac']:.3f} fps ({warm_s:.2f} s), host "
-        f"packing {pack / 1e3:.2f} s ({100 * pack / (1e3 * warm_s):.1f}%) "
+        f"reference picture); one staged pass "
+        f"{fps['h264_1080p_ipbb_cabac']:.3f} fps ({staged_s:.2f} s), host "
+        f"packing {pack / 1e3:.2f} s ({100 * pack / (1e3 * staged_s):.1f}%) "
         f"[{card}]")
     stage_lines("bench", stages)
-    seconds["h264_1080p_ipbb_cabac"] = {"first": cold_s, "warm": warm_s,
+    seconds["h264_1080p_ipbb_cabac"] = {"staged": staged_s,
                                         "packing_ms": pack}
 
     # (d) K1 against its plain version inside the encoder's loop: the
@@ -2797,6 +2803,303 @@ def phase_h264_encode(dev, card):
                                "synchronised_ms": k1_sync}}
 
 
+def prores_ffv1_sources(gold_p, gold_f):
+    """Phase 19's source frames as host planes, each checked against its
+    golden's adler32 before any encode: -> (10-bit, 8-bit) per frame."""
+    from libav_tpu_torch import testdata
+    w, h = testdata.PRORES_SIZE
+    src10, src8 = [], []
+    for t in range(testdata.PRORES_FRAMES):
+        src10.append(testdata.pattern10(w, h, t))
+        src8.append(testdata.pattern(w, h, t))
+        for tag, planes, want, dt in (
+                ("pattern10", src10[-1], gold_p["source"][t], "<u2"),
+                ("pattern", src8[-1], gold_f["source"][t], "u1")):
+            got = testdata.plane_adler32(planes, dt)
+            if got != want:
+                raise AssertionError(f"the {tag} {w}x{h} frame {t} planes "
+                                     f"{got} differ from the golden's "
+                                     f"{want}: numpy differs here")
+    return src10, src8
+
+
+def check_packets(tag, datas, want, flags=None):
+    import hashlib
+    got = [{"size": len(d), "md5": hashlib.md5(d).hexdigest()}
+           for d in datas]
+    if flags is not None:
+        for g, f in zip(got, flags):
+            g["key"] = bool(f & 1)
+    if got != want:
+        raise AssertionError(f"{tag}: packets {got} differ from the JAX "
+                             f"encoder's golden {want}")
+
+
+@contextlib.contextmanager
+def timed_calls(dev, patches, out, keep=None):
+    """Each (cls, attr, label) method synchronised and timed into
+    out[label] (ms per call) while inside; with keep, the arguments of
+    each call of a `forward` are kept there too (keep[label]).
+    Measurement only."""
+    import torch
+    saved = [(c, a, getattr(c, a)) for c, a, _ in patches]
+    for cls, attr, label in patches:
+        def wrap(*args, _f=getattr(cls, attr), _l=label, _a=attr, **kw):
+            if keep is not None and _a == "forward":
+                keep.setdefault(_l, []).append(args)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            r = _f(*args, **kw)
+            torch.cuda.synchronize(dev)
+            out.setdefault(_l, []).append(1e3 * (time.perf_counter() - t0))
+            return r
+        setattr(cls, attr, wrap)
+    try:
+        yield out
+    finally:
+        for cls, attr, inner in saved:
+            setattr(cls, attr, inner)
+
+
+def phase_prores_ffv1(dev, card):
+    """Phase 19: ProRes and FFV1 on the card. prores_idct and fdct10
+    against the numpy goldens on 65,280 blocks (a 1080p 4:2:2 picture),
+    exact, with their device ms by CUDA events, launches and byte bound;
+    two 1920x1080 yuv422p10le frames of testdata.pattern10 through the
+    port's ProresEncoder (standard profile, rate-controlled) on the card,
+    packets equal to the JAX encoder's golden, then through its
+    ProresDecoder, frames equal to the JAX decoder's; the same frames'
+    8-bit source through FFV1 (range coder, 5-gradient context, the
+    second frame a non-key frame), packets golden and the decode equal to
+    the source; the CLI to .mov from 10-bit rawvideo and to .avi from
+    ipbb.m2v against the JAX CLI's md5 and framecrc; stage ms per picture
+    and each run's fps."""
+    import hashlib
+    import numpy as np
+    import torch
+    from libav_tpu_torch import testdata
+    from libav_tpu_torch.avutil.frame import Frame, Packet
+    from libav_tpu_torch.codecs.api import CodecParameters, MediaType
+    from libav_tpu_torch.codecs.ffv1.dec import FFV1Decoder
+    from libav_tpu_torch.codecs.ffv1.enc import FFV1Encoder
+    from libav_tpu_torch.codecs.prores import dec as pdec
+    from libav_tpu_torch.codecs.prores import enc as penc
+    from libav_tpu_torch.ops import prores_dct
+    from libav_tpu_torch.tools import avconv
+    t_phase = time.perf_counter()
+    gold_p = testdata.load_golden(testdata.prores_golden_path())
+    gold_f = testdata.load_golden(testdata.ffv1_golden_path())
+    w, h = testdata.PRORES_SIZE
+    src10, src8 = prores_ffv1_sources(gold_p, gold_f)
+    out = {"fps": {}}
+
+    # (a) the transforms on a 1080p 4:2:2 picture's 8,160 x 8 blocks
+    B = 65280
+    coeffs, qrows = testdata.prores_idct_inputs(19, B)
+    samples = testdata.prores_fdct_inputs(20, B)
+    c_d, q_d, s_d = (torch.tensor(a, device=dev)
+                     for a in (coeffs, qrows, samples))
+    checks = (
+        ("prores_idct", lambda: prores_dct.prores_idct(c_d, q_d),
+         prores_dct.prores_idct_ref(coeffs, qrows),
+         "coefficients and quant rows (int16) in, samples (uint16) out",
+         "dequant products past int16, DC-only blocks, row sums past "
+         "int32"),
+        ("fdct10", lambda: prores_dct.fdct10(s_d),
+         prores_dct.fdct10_ref(samples),
+         "samples (uint16) in, coefficients (int16) out",
+         "flat, checkerboard and noisy blocks with samples at 0 and "
+         "1023"))
+    for name, fn, want, what, cases in checks:
+        got = fn().cpu().numpy().astype(np.int64)
+        err = int(np.abs(got - want.astype(np.int64)).max())
+        if err:
+            raise AssertionError(f"{name} on the card differs from the "
+                                 f"numpy golden by {err}")
+        ms = event_ms(fn, reps=10)
+        calls, kernels = launch_count(fn)
+        nbytes = B * 64 * 2 * (3 if name == "prores_idct" else 2)
+        bound = nbytes / HBM_BYTES_PER_MS
+        out[name] = {"ms": ms, "launches": calls, "kernels": kernels,
+                     "bound_ms": bound, "bytes": nbytes, "max_abs_err": err}
+        log(f"phase 19 {name} on {B} blocks: exact against the numpy "
+            f"golden ({cases}); {ms:.4f} ms by CUDA "
+            f"events, {calls} launches ({kernels} device kernels held); "
+            f"bound {bound:.5f} ms ({nbytes} bytes: {what}), "
+            f"{100 * bound / ms:.2f}% of it [{card}]")
+
+    # (b) ProRes encode on the card
+    par = CodecParameters(codec_type=MediaType.VIDEO, codec_id="prores",
+                          width=w, height=h, pix_fmt="yuv422p10le")
+    frames = []
+    for t, planes in enumerate(src10):
+        f = Frame(width=w, height=h, format="yuv422p10le")
+        f.planes = [torch.tensor(p, device=dev) for p in planes]
+        f.pts = t
+        frames.append(f)
+    enc = penc.ProresEncoder(par, device=dev)
+    stages, kept = {}, {}
+    with timed_calls(dev, [(penc.FdctPlane, "forward", "fdct"),
+                           (penc.ProresEncoder, "_find_quants", "rate"),
+                           (penc.ProresEncoder, "_pack_frame", "pack"),
+                           (penc.ProresEncoder, "_encode", "picture")],
+                     stages, kept):
+        t0 = time.perf_counter()
+        pkts = enc.encode_all(frames)
+        enc_s = time.perf_counter() - t0
+    datas = [p.data for p in pkts]
+    check_packets("prores encode", datas, gold_p["packets"])
+    fdct = [sum(stages["fdct"][3 * i:3 * i + 3]) for i in range(len(pkts))]
+    host = [p - f for p, f in zip(stages["picture"], fdct)]
+    planes = kept["fdct"][-3:]
+    fdct_pic = event_ms(lambda: [m(x) for m, x in planes], reps=5)
+    fdct_launches = launch_count(lambda: [m(x) for m, x in planes])[0]
+    out["fps"]["prores encode"] = len(pkts) / enc_s
+    log(f"phase 19 ProRes encode of {len(pkts)} pattern10 frames {w}x{h} "
+        f"yuv422p10le (standard profile, rate-controlled) on the card: "
+        f"packets ({sum(map(len, datas))} bytes) md5-identical to the JAX "
+        f"encoder's golden; {out['fps']['prores encode']:.3f} fps; per "
+        f"picture FDCT (pad, block, fdct10; synchronised) "
+        f"{', '.join(f'{x:.2f}' for x in fdct)} ms, host rate control "
+        f"{', '.join(f'{x:.0f}' for x in stages['rate'])} ms and packing "
+        f"{', '.join(f'{x:.0f}' for x in stages['pack'])} ms (host "
+        f"{100 * sum(host) / (1e3 * enc_s):.1f}% of the encode); the "
+        f"FDCT programs of one picture {fdct_pic:.3f} ms by CUDA events, "
+        f"{fdct_launches} launches [{card}]")
+
+    # (c) ProRes decode on the card
+    dec = pdec.ProresDecoder(CodecParameters(codec_type=MediaType.VIDEO,
+                                             codec_id="prores"), device=dev)
+    stages, kept = {}, {}
+    with timed_calls(dev, [(pdec.ReconPlane, "forward", "recon"),
+                           (pdec.ProresDecoder, "_decode", "picture")],
+                     stages, kept):
+        t0 = time.perf_counter()
+        decoded = dec.decode_all(Packet(data=d, pts=i)
+                                 for i, d in enumerate(datas))
+        dec_s = time.perf_counter() - t0
+    for f in decoded:
+        if any(p.device != dev or p.dtype != torch.uint16
+               for p in f.planes):
+            raise AssertionError("prores decode: planes not uint16 on the "
+                                 "card")
+    got = testdata.digest([f.to_host().planes for f in decoded], "<u2")
+    if got != gold_p["decode"]:
+        raise AssertionError("prores decode: frames differ from the JAX "
+                             "decoder's golden")
+    recon = [sum(stages["recon"][3 * i:3 * i + 3])
+             for i in range(len(decoded))]
+    entropy = [p - r for p, r in zip(stages["picture"], recon)]
+    planes = kept["recon"][-3:]
+    recon_pic = event_ms(lambda: [m(*a) for m, *a in planes], reps=5)
+    recon_launches = launch_count(lambda: [m(*a) for m, *a in planes])[0]
+    out["fps"]["prores decode"] = len(decoded) / dec_s
+    log(f"phase 19 ProRes decode on the card: {len(decoded)} frames "
+        f"(uint16 planes on the card) adler32+md5 identical to the JAX "
+        f"decoder's golden; {out['fps']['prores decode']:.3f} fps; per "
+        f"picture host entropy {', '.join(f'{x:.0f}' for x in entropy)} ms, "
+        f"recon (synchronised) {', '.join(f'{x:.2f}' for x in recon)} ms "
+        f"(host {100 * sum(entropy) / (1e3 * dec_s):.1f}% of the decode); "
+        f"the recon programs of one picture (dequant, prores_idct, "
+        f"scatter) {recon_pic:.3f} ms by CUDA events, {recon_launches} "
+        f"launches; prores_idct alone {out['prores_idct']['ms']:.4f} ms "
+        f"against its bound {out['prores_idct']['bound_ms']:.5f} ms "
+        f"[{card}]")
+
+    # (d) FFV1, lossless, from planes on the card
+    fpar = CodecParameters(codec_type=MediaType.VIDEO, codec_id="ffv1",
+                           width=w, height=h, pix_fmt="yuv420p")
+    fenc = FFV1Encoder(fpar)
+    for k, v in testdata.FFV1_SETTINGS.items():
+        fenc.set_opt(k, v)
+    ff = []
+    for t, planes in enumerate(src8):
+        f = Frame(width=w, height=h, format="yuv420p")
+        f.planes = [torch.tensor(p, device=dev) for p in planes]
+        f.pts = t
+        ff.append(f)
+    t0 = time.perf_counter()
+    fpkts = fenc.encode_all(ff)
+    fenc_s = time.perf_counter() - t0
+    fdatas = [p.data for p in fpkts]
+    check_packets("ffv1 encode", fdatas, gold_f["packets"],
+                  [p.flags for p in fpkts])
+    fdec = FFV1Decoder(CodecParameters(codec_type=MediaType.VIDEO,
+                                       codec_id="ffv1", width=w, height=h),
+                       device=dev)
+    t0 = time.perf_counter()
+    fout = fdec.decode_all(Packet(data=d, pts=i)
+                           for i, d in enumerate(fdatas))
+    torch.cuda.synchronize(dev)
+    fdec_s = time.perf_counter() - t0
+    for f, g in zip(fout, ff):
+        if not all(p.device == dev and torch.equal(p, q)
+                   for p, q in zip(f.planes, g.planes)):
+            raise AssertionError("ffv1 decode: not the source planes")
+    if len(fout) != len(ff):
+        raise AssertionError(f"ffv1 decode: {len(fout)} frames")
+    out["fps"]["ffv1 encode"] = len(fpkts) / fenc_s
+    out["fps"]["ffv1 decode"] = len(fout) / fdec_s
+    log(f"phase 19 FFV1 {testdata.FFV1_SETTINGS} of {len(fpkts)} pattern "
+        f"frames {w}x{h} yuv420p from planes on the card: packets "
+        f"({', '.join(str(len(d)) for d in fdatas)} bytes; key "
+        f"{[bool(p.flags & 1) for p in fpkts]}) md5-identical to the JAX "
+        f"encoder's golden; the decode on the card equal to the source "
+        f"(lossless); encode {out['fps']['ffv1 encode']:.3f} fps, decode "
+        f"{out['fps']['ffv1 decode']:.3f} fps (host Python per sample) "
+        f"[{card}]")
+
+    # (e) the CLI, one run each
+    work = tempfile.mkdtemp()
+    try:
+        yuv = testdata.write_pattern10_yuv(work)
+        argv = [yuv if a == testdata.PRORES_CLI_INPUT else a
+                for a in testdata.PRORES_CLI]
+        m2v = testdata.write_cli_input(testdata.FFV1_CLI_SOURCE, work)
+        runs = (("out.mov", gold_p, argv),
+                ("out.avi", gold_f, ["-i", m2v, *testdata.FFV1_CLI]))
+        for name, gold, args in runs:
+            want = gold["cli"][name]
+            dst = os.path.join(work, name)
+            _, err, secs = run_cli(avconv, ["-benchmark", *args, dst], dev)
+            with open(dst, "rb") as f:
+                data = f.read()
+            if hashlib.md5(data).hexdigest() != want["md5"]:
+                raise AssertionError(f"avconv {' '.join(want['args'])} "
+                                     f"{name}: differs from the JAX CLI's")
+            enc_fps = float(re.search(r"fps=([0-9.]+)", err).group(1))
+            crc = dst + ".crc"
+            _, err, crc_s = run_cli(avconv, ["-benchmark", "-i", dst, "-f",
+                                             "framecrc", crc], dev)
+            with open(crc) as f:
+                text = f.read()
+            if text != want["framecrc"]:
+                raise AssertionError(f"avconv -i {name} -f framecrc: "
+                                     f"differs from the JAX CLI's")
+            dec_fps = float(re.search(r"fps=([0-9.]+)", err).group(1))
+            out["fps"][f"cli {name}"] = enc_fps
+            out["fps"][f"cli {name} framecrc"] = dec_fps
+            log(f"phase 19 avconv -benchmark {' '.join(want['args'])} "
+                f"{name}: {len(data)} bytes md5-identical to the JAX CLI's, "
+                f"CLI {enc_fps} fps ({secs:.2f} s wall); -i {name} -f "
+                f"framecrc identical to the JAX CLI's, {dec_fps} fps "
+                f"({crc_s:.2f} s wall) [{card}]")
+        # lossless: the .avi's frames are the MPEG-2 stream's first two
+        with open(testdata.framecrc_path(testdata.FFV1_CLI_SOURCE)) as f:
+            src_lines = [[x.strip() for x in ln.split(",")[-2:]]
+                         for ln in f if ln.startswith("0,")][:2]
+        avi_lines = [[x.strip() for x in ln.split(",")[-2:]] for ln in
+                     gold_f["cli"]["out.avi"]["framecrc"].splitlines()
+                     if ln.startswith("0,")]
+        if avi_lines != src_lines:
+            raise AssertionError("out.avi: its frames' size and adler32 "
+                                 "differ from ipbb.m2v's first two")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def probe_record(name, source, line, what, probe, l2, library):
     """The kernels-line entry of P1 or P2 from phase 7's results."""
     times = probe["times"]
@@ -2893,6 +3196,7 @@ def main():
     from libav_tpu_torch.tools import kernel_probe
 
     # phase 0
+    t_run = time.perf_counter()
     dev = hwdevice.device("cuda")
     info = hwdevice.describe(dev)
     card = info.pop("nvidia_smi")
@@ -2931,6 +3235,7 @@ def main():
     filters = phase_filters(dev, card, cli_fps, config5)
     mpeg12 = phase_mpeg12(dev, card)
     encode18 = phase_h264_encode(dev, card)
+    phase_prores_ffv1(dev, card)
     runs = filters["runs"]
     k2_paths = {"mpeg2 decodes": k2_launches, "mjpeg decode": mjpeg_launches,
                 "mpeg4 encode": mpeg4["launches"],
@@ -3059,6 +3364,7 @@ def main():
                      f"{y2r['full']['cold_device_ms']} ms cold",
         }],
         "card": card}
+    log(f"chip_smoke: phases 0-19 took {time.perf_counter() - t_run:.1f} s")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": info}))
     return 0

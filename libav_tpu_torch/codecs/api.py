@@ -69,15 +69,12 @@ _DECODERS: Dict[str, Type["Decoder"]] = {}
 _ENCODERS: Dict[str, Type["Encoder"]] = {}
 
 # codec id -> the ROADMAP.md module-queue step that ports its decoder
-NOT_PORTED = {
-    "prores": "11",
-    "ffv1": "15",
-}
+# (every decoder of the JAX package has its port since step 15)
+NOT_PORTED: Dict[str, str] = {}
 
 # encoder id -> the ROADMAP.md module-queue step that ports its device part
-ENCODER_STEPS = {
-    "prores": "11", "ffv1": "15",
-}
+# (every encoder of the JAX package has its port since step 15)
+ENCODER_STEPS: Dict[str, str] = {}
 
 
 def register_codec(cls):

@@ -36,7 +36,10 @@ MPEG12_RUNS on `pattern` frames (the two MPEG-2 streams above are those
 encoders' own packets, with MPEG2_STREAMS' settings). LEGACY's streams
 (H.263, FLV1, MSMPEG4 v2/v3, WMV1, from `tools/legacy_streams.py`) come
 with the JAX decoders' digests in `legacy.golden.json` and the JAX CLI's
-`<name>.framecrc`.
+`<name>.framecrc`. `prores.golden.json` and `ffv1.golden.json` hold the
+JAX ProRes and FFV1 encoders' packet digests and decoders' frame digests
+on `pattern10` and `pattern` frames at 1080p, with the JAX CLI's output
+of their CLI runs (digests and framecrc text only).
 All files are written by `tools/gen_torch_smoke_stream.py`.
 """
 
@@ -51,6 +54,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 
 from libav_tpu_torch.ops.idct import simple_idct_matrix
+from libav_tpu_torch.ops.prores_dct import idct_matrix_int10
 from libav_tpu_torch.ops.mc import EDGE
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -127,8 +131,57 @@ ENCODE_CLI = {
 ENCODE_SOURCES = ((1920, 1080, 8), (1920, 1088, 4))
 
 
+# the ProRes and FFV1 slice (prores.golden.json, ffv1.golden.json):
+# PRORES_FRAMES frames of pattern10 at PRORES_SIZE through the ProRes
+# encoder at its defaults (standard profile, rate-controlled), and the
+# same frames of `pattern` (8-bit 4:2:0) through the FFV1 encoder with
+# FFV1_SETTINGS (range coder, 5-gradient context; the second frame is a
+# non-key frame); each golden holds the source planes' adler32, each
+# packet's size and md5, the decoded frames' digests and the JAX CLI's
+# output for its CLI run: PRORES_CLI on PRORES_CLI_INPUT (PRORES_FRAMES
+# frames of pattern10 as yuv422p10le rawvideo) into out.mov, then
+# `-i out.mov -f framecrc`; FFV1_CLI on the committed ipbb.m2v into
+# out.avi, then `-i out.avi -f framecrc`
+PRORES_SIZE = (1920, 1080)
+PRORES_FRAMES = 2
+PRORES_CLI_INPUT = "p10.yuv"
+PRORES_CLI = ("-f", "rawvideo", "-pix_fmt", "yuv422p10le", "-s",
+              "1920x1080", "-r", "25", "-i", PRORES_CLI_INPUT, "-frames:v",
+              "1", "-c:v", "prores")
+FFV1_SETTINGS = {"coder": 1, "context": 1}
+FFV1_CLI_SOURCE = "mpeg2_1080p_ipbb"
+FFV1_CLI = ("-frames:v", "2", "-c:v", "ffv1")
+# pattern10's texture: its seed (plus the frame number) and the noise
+# amplitudes a 16x16 square takes; two samples in PATTERN10_SPIKES are
+# set to 0 and 1023 (light enough that the rate-controlled 1080p encode
+# rarely overquantises a slice: the trellis's host time grows with it)
+PATTERN10_SEED = 1010
+PATTERN10_AMPLITUDES = (0, 0, 1, 3, 8, 20)
+PATTERN10_SPIKES = 65536
+
+
 def encode_cli_golden_path() -> str:
     return os.path.join(HERE, "encode_cli.golden.json")
+
+
+def prores_golden_path() -> str:
+    return os.path.join(HERE, "prores.golden.json")
+
+
+def ffv1_golden_path() -> str:
+    return os.path.join(HERE, "ffv1.golden.json")
+
+
+def write_pattern10_yuv(directory: str, n: int = PRORES_FRAMES) -> str:
+    """Write n frames of pattern10 at PRORES_SIZE as yuv422p10le rawvideo
+    (little-endian 16-bit samples) into directory: -> its path, the input
+    of PRORES_CLI."""
+    path = os.path.join(directory, PRORES_CLI_INPUT)
+    with open(path, "wb") as f:
+        for t in range(n):
+            for p in pattern10(*PRORES_SIZE, t):
+                f.write(p.astype("<u2").tobytes())
+    return path
 
 
 def mpeg12_golden_path() -> str:
@@ -382,12 +435,14 @@ def write_packets(path: str, datas: Sequence[bytes]) -> None:
             f.write(d)
 
 
-def digest(frames_planes: Sequence[Sequence[np.ndarray]]) -> Dict:
-    """Golden record of decoded frames, each given as host (Y, U, V)."""
+def digest(frames_planes: Sequence[Sequence[np.ndarray]],
+           dtype=np.uint8) -> Dict:
+    """Golden record of decoded frames, each given as host (Y, U, V), the
+    samples as dtype ("<u2" for 10-bit planes, as rawvideo stores them)."""
     total = hashlib.md5()
     per = []
     for planes in frames_planes:
-        data = b"".join(np.ascontiguousarray(p, np.uint8).tobytes()
+        data = b"".join(np.ascontiguousarray(p, dtype).tobytes()
                         for p in planes)
         total.update(data)
         per.append({"adler32": f"0x{zlib.adler32(data, 0) & 0xFFFFFFFF:08x}",
@@ -475,11 +530,98 @@ def pattern(width: int, height: int, t: int):
     return y, u, v
 
 
-def plane_adler32(planes) -> List[str]:
-    """adler32 (seed 1, as zlib computes it) of each plane's bytes."""
-    return ["0x%08x" % (zlib.adler32(np.ascontiguousarray(p, np.uint8)
+def pattern10(width: int, height: int, t: int,
+              fmt: str = "yuv422p10le"):
+    """Frame t of a 10-bit 4:2:2 (yuv422p10le) or 4:4:4 (yuv444p10le)
+    source, as host (Y, U, V) uint16 planes: `pattern` scaled to 10 bits
+    (chroma repeated to full height, and to full width at 4:4:4), plus a
+    texture from numpy.random.default_rng(PATTERN10_SEED + t): each 16x16
+    square takes one of PATTERN10_AMPLITUDES for its noise, and two
+    samples in PATTERN10_SPIKES are set to 0 and 1023, so the ProRes
+    encoder meets flat and busy slices, long and short runs and large
+    levels (every AC codebook), and samples at both ends of the range."""
+    if fmt not in ("yuv422p10le", "yuv444p10le"):
+        raise ValueError(f"pattern10: no {fmt} source")
+    rng = np.random.default_rng(PATTERN10_SEED + t)
+    amplitudes = np.array(PATTERN10_AMPLITUDES)
+    planes = []
+    for p, src in enumerate(pattern(width, height, t)):
+        base = src.astype(np.int32) << 2
+        if p:
+            base = np.repeat(base, 2, axis=0)[:height]
+            if fmt == "yuv444p10le":
+                base = np.repeat(base, 2, axis=1)[:, :width]
+        h, w = base.shape
+        amp = amplitudes[rng.integers(0, len(amplitudes),
+                                      (-(-h // 16), -(-w // 16)))]
+        amp = np.repeat(np.repeat(amp, 16, axis=0), 16, axis=1)[:h, :w]
+        x = base + rng.integers(-256, 257, (h, w)) * amp // 256
+        spikes = rng.integers(0, PATTERN10_SPIKES, (h, w))
+        x = np.where(spikes == 0, 0, np.where(spikes == 1, 1023, x))
+        planes.append(np.clip(x, 0, 1023).astype(np.uint16))
+    return tuple(planes)
+
+
+def plane_adler32(planes, dtype=np.uint8) -> List[str]:
+    """adler32 (seed 1, as zlib computes it) of each plane's bytes, the
+    samples as dtype."""
+    return ["0x%08x" % (zlib.adler32(np.ascontiguousarray(p, dtype)
                                      .tobytes()) & 0xFFFFFFFF)
             for p in planes]
+
+
+def prores_idct_inputs(seed, B):
+    """((B, 64) coefficients, (B, 64) scaled quant rows) int32 for
+    prores_idct, five classes in turn: sparse levels under a plausible
+    scaled matrix (4-255 times a slice factor of 1-512, int16-wrapped
+    like the decoder's rows), DC-only blocks, dense products that wrap
+    int16, rows whose sums overflow int32 (+-32767 signed like a row of
+    the IDCT matrix, or anywhere in the int16 range, with a unit
+    quantiser), and all-zero blocks."""
+    rng = np.random.default_rng(seed)
+    cls = np.arange(B) % 5
+    c = rng.integers(-2048, 2049, (B, 64)) * (rng.random((B, 64)) < 0.3)
+    q = rng.integers(4, 256, (B, 64)) * rng.integers(1, 513, (B, 1))
+    q = ((q + 0x8000) & 0xFFFF) - 0x8000
+    dc = cls == 1
+    c[dc, 1:] = 0
+    c[dc, 0] = rng.integers(-4096, 4097, int(dc.sum()))
+    wrap = cls == 2
+    n2 = int(wrap.sum())
+    c[wrap] = rng.integers(256, 4097, (n2, 64)) * \
+        rng.choice([-1, 1], (n2, 64))
+    q[wrap] = rng.integers(64, 32768, (n2, 64)) * \
+        rng.choice([-1, 1], (n2, 64))
+    big = cls == 3
+    n3 = int(big.sum())
+    sign = np.sign(idct_matrix_int10())[rng.integers(0, 8, (n3, 8))]
+    ext = np.where(sign >= 0, 32767, -32767)
+    c[big] = np.where(rng.random((n3, 8, 1)) < 0.5, ext,
+                      rng.integers(-32768, 32768, (n3, 8, 8))
+                      ).reshape(n3, 64)
+    q[big] = 1
+    c[cls == 4] = 0
+    return c.astype(np.int32), q.astype(np.int32)
+
+
+def prores_fdct_inputs(seed, B):
+    """(B, 8, 8) int32 10-bit samples for fdct10, five classes in turn:
+    uniform 0-1023, flat 0, flat 1023, a 0/1023 checkerboard, and a
+    smooth ramp with a few samples at 0 and 1023."""
+    rng = np.random.default_rng(seed)
+    cls = np.arange(B) % 5
+    x = rng.integers(0, 1024, (B, 8, 8))
+    x[cls == 1] = 0
+    x[cls == 2] = 1023
+    yy, xx = np.mgrid[0:8, 0:8]
+    x[cls == 3] = np.where((yy + xx) % 2, 1023, 0)
+    ramp = cls == 4
+    n4 = int(ramp.sum())
+    r = rng.integers(0, 900, (n4, 1, 1)) + 9 * (yy + xx)[None]
+    r = np.where(rng.random((n4, 8, 8)) < 0.05,
+                 rng.choice([0, 1023], (n4, 8, 8)), r)
+    x[ramp] = r
+    return x.astype(np.int32)
 
 
 def padded_planes(rng, H: int, W: int):

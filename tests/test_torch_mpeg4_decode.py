@@ -41,7 +41,6 @@ from libav_tpu.ops import quant as jq
 from libav_tpu.tools import avconv as jax_avconv
 from libav_tpu.tools import avprobe as jax_avprobe
 from libav_tpu_torch import testdata
-from libav_tpu_torch.avutil.error import AVError
 from libav_tpu_torch.avutil.frame import Packet
 from libav_tpu_torch.codecs import find_decoder, mpegvideo
 from libav_tpu_torch.codecs.mpeg4 import MPEG4Decoder
@@ -354,8 +353,8 @@ def test_find_decoder_runs_on_the_card_unless_told():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             find_decoder("mpeg4")()
-    # the legacy decoders of step 8b resolve to the port's classes; an
-    # unported codec names its step
+    # the legacy decoders of step 8b and ProRes (step 11) resolve to the
+    # port's classes
     from libav_tpu_torch.codecs.h263dec import FLV1Decoder, H263Decoder
     from libav_tpu_torch.codecs.msmpeg4dec import (MSMPEG4v3Decoder,
                                                    WMV1Decoder)
@@ -363,8 +362,8 @@ def test_find_decoder_runs_on_the_card_unless_told():
                        ("msmpeg4v3", MSMPEG4v3Decoder),
                        ("wmv1", WMV1Decoder)):
         assert find_decoder(codec) is cls
-    with pytest.raises(AVError, match="step 11"):
-        find_decoder("prores")
+    from libav_tpu_torch.codecs.prores.dec import ProresDecoder
+    assert find_decoder("prores") is ProresDecoder
 
 
 def test_parser_splits_vops():

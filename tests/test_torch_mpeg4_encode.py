@@ -407,8 +407,9 @@ def test_encoder_runs_on_the_card_unless_told():
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             enc(par)
-    with pytest.raises(AVError, match="step 11"):
-        find_encoder("prores")
+    prores = find_encoder("prores")
+    assert prores.DEVICE_PART
+    assert prores(par, device="cpu").device == CPU
 
 
 def test_encode_probe_stages():

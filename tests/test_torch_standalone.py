@@ -76,7 +76,13 @@ def test_sources_cover_the_port():
                  "ops/quant.py", "codecs/parsers.py", "codecs/er.py",
                  "codecs/mpeg12/enc.py", "codecs/h263dec.py",
                  "codecs/msmpeg4dec.py", "codecs/msmpeg4_tables.py",
-                 "formats/h263raw.py", "formats/flv.py"):
+                 "formats/h263raw.py", "formats/flv.py",
+                 "ops/prores_dct.py", "codecs/prores/__init__.py",
+                 "codecs/prores/tables.py", "codecs/prores/dec.py",
+                 "codecs/prores/enc.py", "codecs/ffv1/__init__.py",
+                 "codecs/ffv1/tables.py", "codecs/ffv1/rangecoder.py",
+                 "codecs/ffv1/common.py", "codecs/ffv1/dec.py",
+                 "codecs/ffv1/enc.py"):
         assert "libav_tpu_torch/" + path in SOURCES
     on_disk = glob.glob(os.path.join(REPO, "libav_tpu_torch", "*", "*.py"))
     assert len(SOURCES) > len(on_disk)

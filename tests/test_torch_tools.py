@@ -166,12 +166,34 @@ def test_avprobe_raises_device_faults(inputs, monkeypatch):
 ])
 def test_unported_parts_name_their_step(opts, step, inputs, tmp_path,
                                         capsys):
-    out = str(tmp_path / "o.avi" if "-c:v" in opts else tmp_path / "o.crc")
-    argv = ["-i", inputs["yuvj420p"], *opts]
-    argv += [out] if "-c:v" in opts else ["-f", "framecrc", out]
-    assert avconv.main(argv, device="cpu") == 1
-    err = capsys.readouterr().err
-    assert step in err and "libav_tpu_torch" in err
+    """A part of step 16 (the HLS muxer) is refused, naming its step.
+    Steps 11 and 15 are ported: their encoders run in the port's avconv
+    (ProRes from 10-bit rawvideo into MOV, FFV1 from the MPEG-2 stream
+    into AVI) and write the JAX CLI's bytes."""
+    if step == "step 16":
+        argv = ["-i", inputs["yuvj420p"], *opts, str(tmp_path / "o.avi")]
+        assert avconv.main(argv, device="cpu") == 1
+        err = capsys.readouterr().err
+        assert step in err and "libav_tpu_torch" in err
+        return
+    if "prores" in opts:
+        src = tmp_path / "p10.yuv"
+        with open(src, "wb") as f:
+            for p in testdata.pattern10(48, 32, 0):
+                f.write(p.astype("<u2").tobytes())
+        argv = ["-f", "rawvideo", "-pix_fmt", "yuv422p10le", "-s", "48x32",
+                "-i", str(src), *opts]
+        ext = "mov"
+    else:
+        argv = ["-i", inputs["m2v"], "-frames:v", "3", *opts]
+        ext = "avi"
+    out = {}
+    for name, tool, kw in (("jax", jax_avconv, {}),
+                           ("port", avconv, {"device": "cpu"})):
+        dst = tmp_path / f"{name}.{ext}"
+        assert tool.main(argv + [str(dst)], **kw) == 0
+        out[name] = dst.read_bytes()
+    assert out["port"] == out["jax"] and len(out["jax"]) > 1000
 
 
 def test_avconv_vf_yadif_matches_jax(inputs, tmp_path):
@@ -191,7 +213,7 @@ def test_avconv_vf_yadif_matches_jax(inputs, tmp_path):
 
 def test_avconv_mpeg4_transcode_matches_jax(inputs, tmp_path, capsys):
     """MPEG-2 in, MPEG-4 out through both CLIs: the same bytes. The
-    ProRes encoder is still refused, naming its step."""
+    ProRes encoder refuses the 4:2:0 frames as the JAX one does."""
     argv = ["-i", inputs["m2v"], "-c:v", "mpeg4", "-bf", "2", "-f", "m4v"]
     out = {}
     for name, tool, kw in (("jax", jax_avconv, {}),
@@ -205,10 +227,12 @@ def test_avconv_mpeg4_transcode_matches_jax(inputs, tmp_path, capsys):
     assert [m4v.M4VDemuxer._vop_type(c) for c in m4v.split_vops(got)] == \
         [0, 1, 2, 2, 1, 2, 2]
     capsys.readouterr()
-    assert avconv.main(["-i", inputs["m2v"], "-c:v", "prores",
-                        str(tmp_path / "o.avi")], device="cpu") == 1
-    err = capsys.readouterr().err
-    assert "Encoder not found" in err and "step 11" in err
+    errs = []
+    for tool, kw in ((jax_avconv, {}), (avconv, {"device": "cpu"})):
+        assert tool.main(["-i", inputs["m2v"], "-c:v", "prores",
+                          str(tmp_path / "o.mov")], **kw) == 1
+        errs.append(capsys.readouterr().err.splitlines()[-1])
+    assert errs[0] == errs[1] and "does not fit profile" in errs[0]
 
 
 def test_avconv_mpeg4_to_avi_matches_jax(inputs, tmp_path):
@@ -224,12 +248,23 @@ def test_avconv_mpeg4_to_avi_matches_jax(inputs, tmp_path):
 
 
 def test_unported_decoders_name_their_step():
-    with pytest.raises(AVError, match="step 15"):
-        find_encoder("ffv1")
-    with pytest.raises(AVError, match="step 11"):
-        find_decoder("prores")
-    with pytest.raises(AVError, match="step 15"):
-        find_decoder("ffv1")
+    """Every codec of the JAX package has its port since steps 11 and 15:
+    the refusal tables are empty and ProRes and FFV1 resolve to the
+    port's classes; an unknown codec is refused by name."""
+    from libav_tpu_torch.codecs import api as port_api
+    from libav_tpu_torch.codecs.ffv1 import dec as ffv1_dec
+    from libav_tpu_torch.codecs.ffv1 import enc as ffv1_enc
+    from libav_tpu_torch.codecs.prores import dec as prores_dec
+    from libav_tpu_torch.codecs.prores import enc as prores_enc
+    assert port_api.NOT_PORTED == {} and port_api.ENCODER_STEPS == {}
+    assert find_encoder("ffv1") is ffv1_enc.FFV1Encoder
+    assert find_encoder("prores") is prores_enc.ProresEncoder
+    assert find_decoder("prores") is prores_dec.ProresDecoder
+    assert find_decoder("ffv1") is ffv1_dec.FFV1Decoder
+    assert set(jax_codecs.list_decoders()) <= set(port_api.list_decoders())
+    assert set(jax_codecs.list_encoders()) <= set(port_api.list_encoders())
+    with pytest.raises(AVError, match="nosuchcodec"):
+        find_decoder("nosuchcodec")
     dec = find_decoder("mjpeg")(device="cpu")
     assert dec.device == torch.device("cpu")
 

@@ -75,6 +75,20 @@ package's decoder, and written with its golden into
             testdata.ENCODE_CLI (the committed ipbb.m2v to H.264 with the
             bench settings; bench.h264 to MJPEG in AVI) and the adler32 of
             the pattern planes of testdata.ENCODE_SOURCES (~3 min)
+    prores  prores.golden.json: testdata.PRORES_FRAMES frames of
+            testdata.pattern10 at 1920x1080 (yuv422p10le) through the JAX
+            ProRes encoder at its defaults (standard profile,
+            rate-controlled): the source planes' adler32, each packet's
+            size and md5, the JAX decoder's frame digests (16-bit
+            little-endian samples), and the md5 of the JAX CLI's
+            testdata.PRORES_CLI run with its `-i out.mov -f framecrc`
+            output (~2 min)
+    ffv1    ffv1.golden.json: the same frames of testdata.pattern (8-bit
+            4:2:0) through the JAX FFV1 encoder with
+            testdata.FFV1_SETTINGS: the source planes' adler32, each
+            packet's size, md5 and key flag, the JAX decoder's frame
+            digests, and the md5 of the JAX CLI's testdata.FFV1_CLI run
+            on ipbb.m2v with its `-i out.avi -f framecrc` output (~1 min)
     legacy  testdata.LEGACY's streams from tools/legacy_streams.py (H.263
             16CIF as .263; FLV1, MSMPEG4 v3, v2 and WMV1 at 1280x720 in
             FLV and AVI; 6 pictures each), legacy.golden.json with the JAX
@@ -89,7 +103,7 @@ framecrc, mpeg4 and config5 need the streams written first):
     JAX_PLATFORMS=cpu python tools/gen_torch_smoke_stream.py \
         [h264] [mpeg2] [mjpeg] [small] [framecrc] [mpeg4] [mpeg4asp] \
         [h264ext] [config5] [containers] [filters] [mpeg12enc] [legacy] \
-        [h264enc]
+        [h264enc] [prores] [ffv1]
 """
 
 from __future__ import annotations
@@ -732,6 +746,114 @@ def write_encode_cli():
         f.write("\n")
 
 
+def _cli_run(argv, out, work):
+    """The JAX CLI's argv into work/out, then `-i out -f framecrc`: ->
+    {"args", "size", "md5", "framecrc"}."""
+    import hashlib
+    from libav_tpu.tools import avconv
+    dst = os.path.join(work, out)
+    if avconv.main(list(argv) + [dst]) != 0:
+        raise SystemExit(f"avconv {' '.join(argv)} {out} failed")
+    with open(dst, "rb") as f:
+        data = f.read()
+    crc = os.path.join(work, out + ".crc")
+    if avconv.main(["-i", dst, "-f", "framecrc", crc]) != 0:
+        raise SystemExit(f"avconv -i {out} -f framecrc failed")
+    with open(crc) as f:
+        text = f.read()
+    print(f"CLI {out}: {len(data)} bytes")
+    return {"args": list(argv), "size": len(data),
+            "md5": hashlib.md5(data).hexdigest(), "framecrc": text}
+
+
+def _packets(datas, flags=None):
+    import hashlib
+    return [{"size": len(d), "md5": hashlib.md5(d).hexdigest(),
+             **({} if flags is None else {"key": bool(f & 1)})}
+            for d, f in zip(datas, flags or [None] * len(datas))]
+
+
+def write_prores():
+    """prores.golden.json (see the module docstring)."""
+    from libav_tpu.avutil.frame import Frame
+    from libav_tpu.avutil.rational import Rational
+    from libav_tpu.codecs.api import CodecParameters, MediaType, find_encoder
+    w, h = testdata.PRORES_SIZE
+    sources = [testdata.pattern10(w, h, t)
+               for t in range(testdata.PRORES_FRAMES)]
+    frames = []
+    for t, planes in enumerate(sources):
+        f = Frame(width=w, height=h, format="yuv422p10le")
+        f.planes = list(planes)
+        f.pts = t
+        frames.append(f)
+    par = CodecParameters(codec_type=MediaType.VIDEO, codec_id="prores",
+                          width=w, height=h, pix_fmt="yuv422p10le",
+                          framerate=Rational(25, 1))
+    datas = [p.data for p in find_encoder("prores")(par).encode_all(frames)]
+    gold = {"source": [testdata.plane_adler32(p, "<u2") for p in sources],
+            "packets": _packets(datas),
+            "decode": testdata.digest(decode_reference(datas, "prores"),
+                                      "<u2")}
+    work = tempfile.mkdtemp()
+    try:
+        testdata.write_pattern10_yuv(work)
+        old = os.getcwd()
+        os.chdir(work)
+        try:
+            gold["cli"] = {"out.mov": _cli_run(testdata.PRORES_CLI,
+                                               "out.mov", work)}
+        finally:
+            os.chdir(old)
+    finally:
+        shutil.rmtree(work)
+    with open(testdata.prores_golden_path(), "w") as f:
+        json.dump(gold, f, indent=1)
+        f.write("\n")
+    print(f"prores: {len(datas)} packets, {sum(map(len, datas))} bytes")
+
+
+def write_ffv1():
+    """ffv1.golden.json (see the module docstring)."""
+    from libav_tpu.avutil.frame import Packet
+    from libav_tpu.codecs.api import (CodecParameters, MediaType,
+                                      find_decoder, find_encoder)
+    w, h = testdata.PRORES_SIZE
+    sources = [testdata.pattern(w, h, t)
+               for t in range(testdata.PRORES_FRAMES)]
+    par = CodecParameters(codec_type=MediaType.VIDEO, codec_id="ffv1",
+                          width=w, height=h, pix_fmt="yuv420p")
+    enc = find_encoder("ffv1")(par)
+    for k, v in testdata.FFV1_SETTINGS.items():
+        enc.set_opt(k, v)
+    pkts = enc.encode_all([pattern(w, h, t)
+                           for t in range(testdata.PRORES_FRAMES)])
+    datas = [p.data for p in pkts]
+    dec = find_decoder("ffv1")(CodecParameters(
+        codec_type=MediaType.VIDEO, codec_id="ffv1", width=w, height=h))
+    decoded = [[np.asarray(p) for p in f.to_host().planes]
+               for f in dec.decode_all(Packet(data=d, pts=i)
+                                       for i, d in enumerate(datas))]
+    for got, want in zip(decoded, sources):
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise SystemExit("ffv1: the JAX decode is not lossless")
+    gold = {"source": [testdata.plane_adler32(p) for p in sources],
+            "packets": _packets(datas, [p.flags for p in pkts]),
+            "decode": testdata.digest(decoded)}
+    work = tempfile.mkdtemp()
+    try:
+        src = testdata.write_cli_input(testdata.FFV1_CLI_SOURCE, work)
+        gold["cli"] = {"out.avi": _cli_run(["-i", src, *testdata.FFV1_CLI],
+                                           "out.avi", work)}
+        gold["cli"]["out.avi"]["args"][1] = os.path.basename(src)
+    finally:
+        shutil.rmtree(work)
+    with open(testdata.ffv1_golden_path(), "w") as f:
+        json.dump(gold, f, indent=1)
+        f.write("\n")
+    print(f"ffv1: {len(datas)} packets, {sum(map(len, datas))} bytes")
+
+
 def main(which):
     if "h264" in which:
         write(testdata.SMOKE_STREAM, testdata.SMOKE_GOLDEN,
@@ -774,10 +896,14 @@ def main(which):
         write_legacy()
     if "h264enc" in which:
         write_encode_cli()
+    if "prores" in which:
+        write_prores()
+    if "ffv1" in which:
+        write_ffv1()
 
 
 if __name__ == "__main__":
     main(sys.argv[1:] or ("h264", "mpeg2", "mjpeg", "small", "framecrc",
                           "mpeg4", "mpeg4asp", "h264ext", "config5",
                           "containers", "filters", "mpeg12enc", "legacy",
-                          "h264enc"))
+                          "h264enc", "prores", "ffv1"))
