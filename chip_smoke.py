@@ -233,7 +233,27 @@ Phases, in order; any failure exits nonzero and prints no result:
      rawvideo (`-frames:v 1 -c:v prores out.mov`) and from ipbb.m2v
      (`-frames:v 2 -c:v ffv1 out.avi`), each md5-identical to the JAX
      CLI's, with `-i <out> -f framecrc` identical to the JAX CLI's (the
-     .avi's frames equal to ipbb.m2v's first two), each run's fps.
+     .avi's frames equal to ipbb.m2v's first two), each run's fps;
+ 20. the last modules (HLS, RTP/SDP/RTSP, the capture devices, avplay,
+     GOP-parallel decode, the entry points): the bench stream through
+     the port's RTPMuxer over UDP loopback into its rtp:// demuxer (90
+     kHz timestamps), decoded on the card to its golden with K1 once per
+     frame; ipbb.m2v as an RFC 2250 session announced by an .sdp file,
+     the elementary stream byte-identical; ipbb.m2v muxed to MPEG-TS in
+     three HLS segments, read as a VOD playlist on disk and through a
+     master playlist over a loopback http server (the same packets),
+     decoded to its golden with K2 once per picture; `avconv -f testsrc
+     -i testsrc=1920x1080:rate=25:frames=8` and `-i sine=...` to
+     framecrc identical to the JAX CLI's; avplay -vo null on bench.h264
+     (the JAX avplay's frames-shown line) and -ao file on phase 15's
+     out.mp4 (the PCM written equal to the port's own decode of the AAC
+     track); GOP_STREAMS (8 pattern frames at GOP 2: MPEG-2 1920x1080,
+     H.264 640x352 with deblocking) encoded on the card, packets
+     md5-identical to the JAX encoders', then decoded serially and by
+     GOPParallelDecoder with two workers on the card, both equal to the
+     JAX decoders' golden with the same K1/K2 launches; entry() on the
+     card equal to the CPU's, and dryrun_multichip(2) on two copies of
+     the card; each run's fps, wall time and launches.
 Profiled windows (the kernels' device times, phases 6 and 10's busy
 shares, kernel_probe in phase 7) count the launches of the hand kernel
 they hold against its wrapper's count: torch.profiler on the card loses
@@ -3100,6 +3120,400 @@ def phase_prores_ffv1(dev, card):
     return out
 
 
+def rtp_receive(url, count, ready_timeout=10.0):
+    """Open url (rtp://, .sdp or rtsp://) with the port's demuxer in a
+    thread and read count packets: -> (the thread, its state dict, which
+    holds the receiver's port, the packets, or its error)."""
+    import threading
+    from libav_tpu_torch.formats import FormatContext
+    state = {"packets": [], "ready": threading.Event()}
+
+    def rx():
+        try:
+            ic = FormatContext.open_input(url)
+            state["port"] = getattr(ic.iformat, "port", None)
+            state["ready"].set()
+            try:
+                for _ in range(count):
+                    state["packets"].append(ic.read_frame())
+            finally:
+                ic.close()
+        except Exception as e:  # raised in the phase's thread below
+            state["error"] = e
+            state["ready"].set()
+    t = threading.Thread(target=rx, daemon=True)
+    t.start()
+    if not state["ready"].wait(ready_timeout) or "error" in state:
+        raise AssertionError(f"{url}: receiver failed to open: "
+                             f"{state.get('error')!r}")
+    return t, state
+
+
+def rtp_send(port, codec, datas, width, height):
+    """The port's RTPMuxer to udp://127.0.0.1:port, 1 ms between
+    datagrams so a loopback burst stays inside the receive buffer: ->
+    datagrams sent."""
+    from libav_tpu_torch.avutil.frame import Packet
+    from libav_tpu_torch.avutil.rational import Rational
+    from libav_tpu_torch.codecs.api import CodecParameters, MediaType
+    from libav_tpu_torch.formats import Stream
+    from libav_tpu_torch.formats.io import url_open
+    from libav_tpu_torch.formats.rtp import RTPMuxer
+    mux = RTPMuxer()
+    mux.streams = [Stream(index=0, codecpar=CodecParameters(
+        codec_type=MediaType.VIDEO, codec_id=codec, width=width,
+        height=height), time_base=Rational(1, 25))]
+    sock = url_open(f"udp://127.0.0.1:{port}", "w")
+    sent = [0]
+
+    class Paced:
+        def write(self, data):
+            time.sleep(0.001)
+            sent[0] += 1
+            return sock.write(data)
+    try:
+        mux.write_header(Paced())
+        for i, d in enumerate(datas):
+            mux.write_packet(Packet(data=d, pts=i, dts=i,
+                                    time_base=Rational(1, 25)))
+    finally:
+        sock.close()
+    return sent[0]
+
+
+def rtp_join(t, state, url, count):
+    t.join(timeout=60)
+    if t.is_alive() or "error" in state or \
+            len(state["packets"]) != count:
+        raise AssertionError(f"{url}: {len(state['packets'])} of {count} "
+                             f"packets received: {state.get('error')!r}")
+    return state["packets"]
+
+
+def phase_protocols_parallel(dev, card):
+    """Phase 20: the last modules on the card. The bench stream over RTP
+    (UDP loopback) decoded to its golden with its 90 kHz timestamps (K1);
+    an MPEG-2 RTP session announced by an SDP file; the IPB MPEG-2 stream
+    muxed to MPEG-TS, cut into HLS segments, read as a VOD playlist on
+    disk (decoded to its golden, K2) and through a master playlist over
+    a loopback http server; the testsrc and sine devices through avconv
+    against the JAX CLI's framecrc; avplay -vo null on the bench stream
+    (the JAX avplay's frame count) and its A/V path on phase 15's MP4
+    (the PCM written equal to the port's own decode of the AAC track);
+    GOP-parallel decode of two streams that the port encodes on the card
+    (MPEG-2 1080p and H.264 640x352 with deblocking, GOP 2, packets equal
+    to the JAX encoders'): serial and with two workers on the card,
+    frame-identical to each other and the JAX decoders' golden, the same
+    K1/K2 launches; entry() on the card against the CPU and
+    dryrun_multichip(2) on two copies of the card."""
+    import http.server
+    import socket
+    import threading
+    import numpy as np
+    import torch
+    from libav_tpu_torch import entry, testdata
+    from libav_tpu_torch.avutil.frame import Packet
+    from libav_tpu_torch.avutil.rational import Rational
+    from libav_tpu_torch.codecs import api
+    from libav_tpu_torch.codecs.api import (CodecParameters, MediaType,
+                                            find_decoder)
+    from libav_tpu_torch.formats import FormatContext
+    from libav_tpu_torch.formats.rtp import sdp_create
+    from libav_tpu_torch.ops import h264deblock as db
+    from libav_tpu_torch.ops import idct
+    from libav_tpu_torch.parallel.gop import GOPParallelDecoder, split_gops
+    from libav_tpu_torch.testdata import containers as C
+    from libav_tpu_torch.tools import avconv, avplay
+    from libav_tpu_torch.tools import encode_probe as ep
+    t_phase = time.perf_counter()
+    gold = testdata.load_golden(testdata.devices_gop_golden_path())
+    out = {"k1": {}, "k2": {}}
+
+    def reset():
+        db.h264_deblock_frame.launches = db.h264_deblock_wave.launches = 0
+        idct.idct8x8_int.launches = 0
+
+    def counts():
+        return (db.h264_deblock_frame.launches, db.h264_deblock_wave.launches,
+                idct.idct8x8_int.launches)
+
+    def decode_host(codec, datas, **kw):
+        dec = find_decoder(codec)(CodecParameters(
+            codec_type=MediaType.VIDEO, codec_id=codec, **kw), device=dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        frames = dec.decode_all(Packet(data=d, pts=i)
+                                for i, d in enumerate(datas))
+        host = [f.to_host().planes for f in frames]
+        return host, time.perf_counter() - t0
+
+    def line(tag, n, seconds, k, unit="frames"):
+        log(f"phase 20 {tag}: {n} {unit} in {seconds:.2f} s "
+            f"({n / seconds:.3f} fps), K1 frame {k[0]} / wave {k[1]}, "
+            f"K2 {k[2]} launches [{card}]")
+
+    os.environ["no_proxy"] = ",".join(
+        x for x in (os.environ.get("no_proxy"), "127.0.0.1", "localhost")
+        if x)
+    work = tempfile.mkdtemp()
+    try:
+        # (a) the bench stream over RTP into the rtp:// demuxer
+        bench = testdata.read_packets(testdata.SMOKE_STREAM)
+        bench_gold = testdata.load_golden()
+        url = "rtp://127.0.0.1:0?codec=h264"
+        t, state = rtp_receive(url, len(bench))
+        t0 = time.perf_counter()
+        sent = rtp_send(state["port"], "h264", bench, 1920, 1080)
+        got = rtp_join(t, state, url, len(bench))
+        rtp_s = time.perf_counter() - t0
+        if [p.pts for p in got] != [3600 * k for k in range(len(bench))]:
+            raise AssertionError(f"rtp: 90 kHz timestamps "
+                                 f"{[p.pts for p in got]}")
+        reset()
+        host, dec_s = decode_host("h264", [p.data for p in got])
+        k = counts()
+        check_golden(host, bench_gold, "rtp bench decode")
+        if k[:2] != (len(host), 0):
+            raise AssertionError(f"rtp bench decode: K1 {k[:2]}")
+        out["k1"]["rtp bench decode"] = k[0]
+        log(f"phase 20 RTP: bench.h264 ({len(bench)} AUs, "
+            f"{sum(map(len, bench))} bytes) in {sent} datagrams over UDP "
+            f"loopback in {rtp_s:.2f} s, 90 kHz timestamps k * 3600; "
+            f"decoded on the card to the golden")
+        line("RTP bench decode", len(host), dec_s, k)
+
+        # (b) an MPEG-2 RTP session announced by an SDP file
+        m2v = testdata.read_packets(
+            testdata.stream_paths("mpeg2_1080p_ipbb")[0])
+        probe = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        probe.bind(("127.0.0.1", 0))
+        sdp_port = probe.getsockname()[1]
+        probe.close()
+        sdp = os.path.join(work, "s.sdp")
+        with open(sdp, "w") as f:
+            f.write(sdp_create("127.0.0.1", sdp_port, "mpeg2video"))
+        t, state = rtp_receive(sdp, len(m2v))
+        t0 = time.perf_counter()
+        sent = rtp_send(sdp_port, "mpeg2video", m2v, 1920, 1080)
+        got = rtp_join(t, state, sdp, len(m2v))
+        if b"".join(bytes(p.data) for p in got) != b"".join(m2v):
+            raise AssertionError("sdp: the elementary stream differs")
+        log(f"phase 20 SDP: ipbb.m2v ({len(m2v)} pictures) as an RFC 2250 "
+            f"session announced by s.sdp, {sent} datagrams in "
+            f"{time.perf_counter() - t0:.2f} s: the elementary stream "
+            f"byte-identical")
+
+        # (c) HLS: ipbb.m2v in MPEG-TS segments, VOD on disk and a master
+        # playlist over http
+        ts = os.path.join(work, "all.ts")
+        oc = FormatContext.open_output(ts, "mpegts")
+        st = oc.new_stream(CodecParameters(
+            codec_type=MediaType.VIDEO, codec_id="mpeg2video", width=1920,
+            height=1080, pix_fmt="yuv420p"), time_base=Rational(1, 25))
+        st.avg_frame_rate = Rational(25, 1)
+        oc.write_header()
+        for i, d in enumerate(m2v):
+            oc.write_packet(Packet(data=d, pts=i, dts=i, duration=1,
+                                   stream_index=0))
+        oc.write_trailer()
+        with open(ts, "rb") as f:
+            data = f.read()
+        nseg = 3
+        per = (len(data) // 188 // nseg) * 188
+        for j in range(nseg):
+            with open(os.path.join(work, f"seg{j}.ts"), "wb") as f:
+                f.write(data[j * per:(j + 1) * per if j < nseg - 1
+                             else len(data)])
+        with open(os.path.join(work, "media.m3u8"), "w") as f:
+            f.write("#EXTM3U\n#EXT-X-VERSION:3\n#EXT-X-TARGETDURATION:1\n" +
+                    "".join(f"#EXTINF:0.3,\nseg{j}.ts\n"
+                            for j in range(nseg)) + "#EXT-X-ENDLIST\n")
+        with open(os.path.join(work, "master.m3u8"), "w") as f:
+            f.write("#EXTM3U\n#EXT-X-STREAM-INF:BANDWIDTH=20000000\n"
+                    "media.m3u8\n#EXT-X-STREAM-INF:BANDWIDTH=1000\n"
+                    "missing.m3u8\n")
+
+        def hls_packets(u):
+            ic = FormatContext.open_input(u)
+            try:
+                if ic.iformat.NAME != "hls":
+                    raise AssertionError(f"{u}: opened as {ic.iformat.NAME}")
+                return [bytes(p.data) for p in ic.packets()]
+            finally:
+                ic.close()
+        t0 = time.perf_counter()
+        vod = hls_packets(os.path.join(work, "media.m3u8"))
+        vod_s = time.perf_counter() - t0
+
+        class Handler(http.server.SimpleHTTPRequestHandler):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, directory=work, **kw)
+
+            def log_message(self, *a):
+                pass
+        srv = http.server.HTTPServer(("127.0.0.1", 0), Handler)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        try:
+            t0 = time.perf_counter()
+            master = hls_packets(f"http://127.0.0.1:{srv.server_port}/"
+                                 f"master.m3u8")
+            http_s = time.perf_counter() - t0
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            th.join(timeout=10)
+        if master != vod or len(vod) != len(m2v):
+            raise AssertionError(f"hls: {len(vod)} packets on disk, "
+                                 f"{len(master)} over http")
+        reset()
+        host, dec_s = decode_host("mpeg2video", vod)
+        k = counts()
+        check_golden(host, testdata.load_golden(
+            testdata.stream_paths("mpeg2_1080p_ipbb")[1]), "hls decode")
+        if k[2] != len(m2v):
+            raise AssertionError(f"hls decode: {k[2]} K2 launches")
+        out["k2"]["hls decode"] = k[2]
+        log(f"phase 20 HLS: ipbb.m2v muxed to MPEG-TS ({len(data)} bytes) "
+            f"in {nseg} segments: the VOD playlist on disk ({vod_s:.2f} s) "
+            f"and the master playlist over a loopback http server "
+            f"({http_s:.2f} s) give the same {len(vod)} packets")
+        line("HLS decode", len(host), dec_s, k)
+
+        # (d) the capture devices through avconv
+        for name, want in gold["devices"].items():
+            dst = os.path.join(work, name + ".crc")
+            reset()
+            _, err, seconds = run_cli(avconv, ["-benchmark", *want["args"],
+                                               "-f", "framecrc", dst], dev)
+            with open(dst) as f:
+                text = f.read()
+            if text != want["framecrc"]:
+                raise AssertionError(f"avconv {' '.join(want['args'])}: "
+                                     f"framecrc differs from the JAX CLI's")
+            bf = bench_frames(err)
+            log(f"phase 20 avconv -benchmark {' '.join(want['args'])} -f "
+                f"framecrc: identical to the JAX CLI's, {bf['frames']} "
+                f"frames, CLI {bf['fps']} fps ({seconds:.2f} s wall), "
+                f"launches {counts()} [{card}]")
+
+        # (e) avplay: null video on the bench stream, then the A/V path
+        bench_h264 = testdata.write_cli_input("h264_1080p_ipbb_cabac", work)
+        err = io.StringIO()
+        reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = avplay.play(bench_h264, vo="null", device=dev)
+        play_s = time.perf_counter() - t0
+        k = counts()
+        shown = err.getvalue().strip().splitlines()[-1]
+        if rc != 0 or shown != gold["avplay_null"]:
+            raise AssertionError(f"avplay -vo null bench.h264: rc {rc}, "
+                                 f"{shown!r}; the JAX avplay's "
+                                 f"{gold['avplay_null']!r}")
+        nshown = int(shown.split()[1])
+        out["k1"]["avplay null"] = k[0]
+        log(f"phase 20 avplay -vo null bench.h264: {shown!r} as the JAX "
+            f"avplay")
+        line("avplay -vo null", nshown, play_s, k, "frames shown")
+
+        C.write_inputs(work)
+        mux_out, mux_args = C.MUX[0]
+        run_cli(avconv, C.in_dir(mux_args, work) + [os.path.join(
+            work, mux_out)], dev)
+        mp4 = os.path.join(work, mux_out)
+        pcm_path = os.path.join(work, "av.pcm")
+        reset()
+        t0 = time.perf_counter()
+        player = avplay.Player(mp4, vo="null", ao="file", ao_path=pcm_path,
+                               device=dev)
+        with contextlib.redirect_stderr(io.StringIO()) as err:
+            rc = player.run()
+        av_s = time.perf_counter() - t0
+        k = counts()
+        pcm = np.fromfile(pcm_path, "<i2")
+        par, pkts = C.read_stream(FormatContext, mp4, MediaType.AUDIO)
+        ref = C.decode_pcm(api, par, pkts, device=dev)[:2]
+        ref = np.clip(ref.T.reshape(-1).astype(np.float32) * 32767.0,
+                      -32768, 32767).astype(np.int16)
+        if rc != 0 or pcm.size < 48000 or \
+                not np.array_equal(pcm, ref[:pcm.size]):
+            raise AssertionError(f"avplay A/V {mux_out}: rc {rc}, "
+                                 f"{pcm.size} samples written, not the "
+                                 f"port's decode of the AAC track")
+        out["k1"]["avplay A/V"] = k[0]
+        log(f"phase 20 avplay -vo null -ao file {mux_out}: "
+            f"{err.getvalue().strip().splitlines()[-1]!r}, {pcm.size // 2} "
+            f"stereo samples ({pcm.size / 96000:.2f} s of the "
+            f"{ref.size / 96000:.2f} s track) written, equal to the port's "
+            f"own decode of the AAC track; {av_s:.2f} s, K1 frame {k[0]} "
+            f"launches [{card}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (f) GOP-parallel decode at 1080p (MPEG-2) and 640x352 (H.264)
+    for codec, (w, h, n, settings) in testdata.GOP_STREAMS.items():
+        want = gold["gop"][codec]
+        for t, src in enumerate(want["source"]):
+            if testdata.plane_adler32(testdata.pattern(w, h, t)) != src:
+                raise AssertionError(f"the pattern's {w}x{h} frame {t} "
+                                     f"differs from the golden's source")
+        frames = ep.pattern_frames(dev, w, h, n)
+        reset()
+        datas, enc_s = ep.encode(dev, frames, settings, codec=codec)
+        k_enc = counts()
+        check_packets(f"gop {codec} encode", datas, want["packets"])
+        gops = split_gops([Packet(data=d) for d in datas], codec)
+        reset()
+        serial, serial_s = decode_host(codec, datas)
+        k_serial = counts()
+        check_golden(serial, want["decode"], f"gop {codec} serial decode")
+        reset()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        par_frames = GOPParallelDecoder(codec, devices=[dev, dev]).decode(
+            [Packet(data=d, pts=i) for i, d in enumerate(datas)])
+        par_s = time.perf_counter() - t0
+        k_par = counts()
+        check_golden([f.planes for f in par_frames], want["decode"],
+                     f"gop {codec} parallel decode")
+        if k_par != k_serial or k_serial[1] != 0:
+            raise AssertionError(f"gop {codec}: launches {k_par} with two "
+                                 f"workers, {k_serial} serial")
+        kind = 0 if codec == "h264" else 2
+        if k_serial[kind] != len(serial):
+            raise AssertionError(f"gop {codec}: {k_serial} launches for "
+                                 f"{len(serial)} pictures")
+        tag = "k1" if codec == "h264" else "k2"
+        out[tag][f"gop {codec} encode"] = k_enc[kind]
+        out[tag][f"gop {codec} serial"] = k_serial[kind]
+        out[tag][f"gop {codec} two workers"] = k_par[kind]
+        log(f"phase 20 GOP {codec} {w}x{h}: {n} pattern frames {settings} "
+            f"encoded on the card in {enc_s:.2f} s ({n / enc_s:.3f} fps), "
+            f"packets md5-identical to the JAX encoder's, {len(gops)} GOPs; "
+            f"serial and two-worker decodes frame-identical to the JAX "
+            f"decoder's golden")
+        line(f"GOP {codec} encode", n, enc_s, k_enc)
+        line(f"GOP {codec} serial decode", len(serial), serial_s, k_serial)
+        line(f"GOP {codec} decode, two workers on {dev}", len(par_frames),
+             par_s, k_par)
+
+    # (g) entry and the dry run
+    fn, args = entry.entry(dev)
+    got = [p.cpu() for p in fn(*args)]
+    cfn, cargs = entry.entry("cpu")
+    if not all(torch.equal(a, b) for a, b in zip(got, cfn(*cargs))):
+        raise AssertionError("entry: the card's recon differs from the CPU's")
+    t0 = time.perf_counter()
+    summary = entry.dryrun_multichip(2, dev)
+    log(f"phase 20 entry(): the 8x6-MB recon on the card equal to the "
+        f"CPU's; dryrun_multichip(2) on two copies of {dev}: {summary} in "
+        f"{time.perf_counter() - t0:.2f} s [{card}]")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 20 took {out['seconds']:.1f} s")
+    return out
+
+
 def probe_record(name, source, line, what, probe, l2, library):
     """The kernels-line entry of P1 or P2 from phase 7's results."""
     times = probe["times"]
@@ -3236,6 +3650,7 @@ def main():
     mpeg12 = phase_mpeg12(dev, card)
     encode18 = phase_h264_encode(dev, card)
     phase_prores_ffv1(dev, card)
+    last = phase_protocols_parallel(dev, card)
     runs = filters["runs"]
     k2_paths = {"mpeg2 decodes": k2_launches, "mjpeg decode": mjpeg_launches,
                 "mpeg4 encode": mpeg4["launches"],
@@ -3243,7 +3658,7 @@ def main():
                 "mkv to mp4 transcode": cont["transcode"]["k2"],
                 "filter run A_yadif": runs["A_yadif"]["K2"],
                 "filter run D_overlay": runs["D_overlay"]["K2"],
-                **mpeg12["k2"]}
+                **mpeg12["k2"], **last["k2"]}
 
     max_err = max(lines["max_abs_err"], deblock["max_abs_err"])
     k1_49k, p2_49k = probe["l2"]["K1 lines"], probe["l2"]["P2"]
@@ -3260,7 +3675,7 @@ def main():
         **{f"filter run {run}": runs[run]["K1"]
            for run in ("B_pixel", "C_rgb", "D_overlay", "E_interlace",
                        "E_fps")},
-        **encode18["k1"]}
+        **encode18["k1"], **last["k1"]}
     frame_entry["field_picture"] = ext["field"]
     frame_entry["encoder_closed_loop"] = encode18["k1_closed_loop"]
     record = {"kernels": [
@@ -3320,7 +3735,9 @@ def main():
                      "15's transcode anchors, phase 16's filter runs A "
                      "and D, phase 17's MPEG-1/2 encodes' anchors and "
                      "field pictures, its CLI encodes and its legacy "
-                     "decodes, one per picture); in the "
+                     "decodes, one per picture; phase 20's HLS decode "
+                     "and GOP-parallel MPEG-2 encode and decodes, "
+                     "serial and with two workers); in the "
                      "MPEG-4 encode "
                      f"{k2_encode} on the device per launch; "
                      f"at 24,480 (a field): {k2[24480][0]} ms, device "
@@ -3364,7 +3781,7 @@ def main():
                      f"{y2r['full']['cold_device_ms']} ms cold",
         }],
         "card": card}
-    log(f"chip_smoke: phases 0-19 took {time.perf_counter() - t_run:.1f} s")
+    log(f"chip_smoke: phases 0-20 took {time.perf_counter() - t_run:.1f} s")
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": info}))
     return 0

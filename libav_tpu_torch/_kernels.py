@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 import torch
@@ -152,6 +153,16 @@ def check_int32(name: str, t: torch.Tensor, device: torch.device,
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: need shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
+
+
+_LAUNCHES = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """wrapper.launches += 1, under a lock: decoders on worker threads
+    (parallel/gop.py) launch the same kernel at once."""
+    with _LAUNCHES:
+        wrapper.launches += 1
 
 
 def raise_on(err: int, what: str) -> None:

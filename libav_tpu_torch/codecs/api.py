@@ -60,21 +60,12 @@ class CodecParameters:
 
 # ---------------------------------------------------------------------- #
 # Registry: the port's own codec table (reference: allcodecs.c:38-45
-# REGISTER_DECODER/ENCODER macros). A codec the port lacks raises
-# DECODER_NOT_FOUND / ENCODER_NOT_FOUND naming the ROADMAP.md module-queue
-# step that ports it; nothing of the JAX package runs in its place.
+# REGISTER_DECODER/ENCODER macros); nothing of the JAX package runs in
+# its place.
 # ---------------------------------------------------------------------- #
 
 _DECODERS: Dict[str, Type["Decoder"]] = {}
 _ENCODERS: Dict[str, Type["Encoder"]] = {}
-
-# codec id -> the ROADMAP.md module-queue step that ports its decoder
-# (every decoder of the JAX package has its port since step 15)
-NOT_PORTED: Dict[str, str] = {}
-
-# encoder id -> the ROADMAP.md module-queue step that ports its device part
-# (every encoder of the JAX package has its port since step 15)
-ENCODER_STEPS: Dict[str, str] = {}
 
 
 def register_codec(cls):
@@ -98,24 +89,16 @@ def find_decoder(codec_id: str) -> Type["Decoder"]:
     their torch device as a keyword: cls(params, device=...), "cuda" by
     default."""
     if codec_id not in _DECODERS:
-        step = NOT_PORTED.get(codec_id)
-        raise AVError(DECODER_NOT_FOUND, codec_id if step is None else
-                      f"{codec_id} is not ported to libav_tpu_torch yet "
-                      f"(ROADMAP.md module queue, step {step})")
+        raise AVError(DECODER_NOT_FOUND, codec_id)
     return _DECODERS[codec_id]
 
 
 def find_encoder(codec_id: str) -> Type["Encoder"]:
     """reference: avcodec.h avcodec_find_encoder. An encoder whose
     DEVICE_PART is set takes its torch device as a keyword:
-    cls(params, device=...); one the port lacks raises ENCODER_NOT_FOUND
-    naming the step that ports it."""
+    cls(params, device=...)."""
     if codec_id not in _ENCODERS:
-        step = ENCODER_STEPS.get(codec_id)
-        raise AVError(ENCODER_NOT_FOUND, codec_id if step is None else
-                      f"{codec_id}: its device part is not ported to "
-                      f"libav_tpu_torch yet (ROADMAP.md module queue, step "
-                      f"{step})")
+        raise AVError(ENCODER_NOT_FOUND, codec_id)
     return _ENCODERS[codec_id]
 
 

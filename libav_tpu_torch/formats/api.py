@@ -64,44 +64,11 @@ def register_output(cls):
     return cls
 
 
-# the JAX package's containers the port lacks: name -> (the file
-# extensions its probe takes, the ROADMAP.md module-queue step that ports
-# it)
-NOT_PORTED = {
-    "hls": (("m3u8", "m3u"), "16"),
-    "rtp": ((), "16"),
-    "rtsp": ((), "16"),
-    "sdp": (("sdp",), "16"),
-    "testsrc": ((), "16"),
-    "vsynth": ((), "16"),
-    "sine": ((), "16"),
-}
-
-
-def _not_ported(name: str) -> str:
-    """`name`, with the module-queue step that ports it where the JAX
-    package has such a container."""
-    if name not in NOT_PORTED:
-        return name
-    return (f"{name} is not ported to libav_tpu_torch yet (ROADMAP.md "
-            f"module queue, step {NOT_PORTED[name][1]})")
-
-
-def _not_ported_ext(url: str) -> str:
-    """": <the unported container that takes url's extension, as
-    `_not_ported` words it>", or "" for any other url."""
-    ext = url.rsplit(".", 1)[-1].lower() if "." in url else ""
-    for name, (exts, _) in NOT_PORTED.items():
-        if ext and ext in exts:
-            return f": {_not_ported(name)}"
-    return ""
-
-
 def find_input_format(name: str) -> Type["InputFormat"]:
     for key, cls in _INPUT_FORMATS.items():
         if name in key.split(","):
             return cls
-    raise AVError(DEMUXER_NOT_FOUND, _not_ported(name))
+    raise AVError(DEMUXER_NOT_FOUND, name)
 
 
 def guess_format(name: Optional[str] = None, url: Optional[str] = None):
@@ -110,14 +77,13 @@ def guess_format(name: Optional[str] = None, url: Optional[str] = None):
         for key, cls in _OUTPUT_FORMATS.items():
             if name in key.split(","):
                 return cls
-        raise AVError(MUXER_NOT_FOUND, _not_ported(name))
+        raise AVError(MUXER_NOT_FOUND, name)
     if url:
         ext = url.rsplit(".", 1)[-1].lower() if "." in url else ""
         for cls in _OUTPUT_FORMATS.values():
             if ext and ext in getattr(cls, "EXTENSIONS", ()):
                 return cls
-    raise AVError(MUXER_NOT_FOUND, f"{url}{_not_ported_ext(url)}" if url
-                  else "?")
+    raise AVError(MUXER_NOT_FOUND, url or "?")
 
 
 def probe_input(data: bytes, url: str = ""):
@@ -128,8 +94,7 @@ def probe_input(data: bytes, url: str = ""):
         if score > best_score:
             best, best_score = cls, score
     if best is None:
-        raise AVError(DEMUXER_NOT_FOUND, f"cannot probe format of {url!r}"
-                                         f"{_not_ported_ext(url)}")
+        raise AVError(DEMUXER_NOT_FOUND, f"cannot probe format of {url!r}")
     return best
 
 

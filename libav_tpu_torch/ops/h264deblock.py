@@ -42,8 +42,8 @@ import functools
 import numpy as np
 import torch
 
-from libav_tpu_torch._kernels import (check_int32, library, ptr,
-                                      raise_on, stream)
+from libav_tpu_torch._kernels import (check_int32, count_launch, library,
+                                      ptr, raise_on, stream)
 
 # spec table 8-16: alpha, beta indexed by qp (0..51)
 ALPHA = np.array([0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
@@ -183,7 +183,7 @@ def h264_edge_filter_lines(lines: torch.Tensor, qp: torch.Tensor,
             ptr(lines), ptr(out), ptr(qp), ptr(bs), n, a_off, b_off,
             int(chroma), ptr(edge_table(dev)), stream(dev))
     raise_on(err, "h264_edge_filter_lines")
-    h264_edge_filter_lines.launches += 1
+    count_launch(h264_edge_filter_lines)
     return out
 
 
@@ -225,7 +225,7 @@ def h264_edge_filter_pm(xT: torch.Tensor, qp: torch.Tensor,
             ptr(xT), ptr(out), ptr(qp), ptr(bs), n, ptr(edge_table(dev)),
             stream(dev))
     raise_on(err, "h264_edge_filter_pm")
-    h264_edge_filter_pm.launches += 1
+    count_launch(h264_edge_filter_pm)
     return out
 
 
@@ -382,7 +382,7 @@ def h264_deblock_wave(ypad, upad, vpad, grids, wave: int, mb_w: int,
             wave, wave_slots(mb_w, mb_h), a_off, b_off,
             ptr(edge_table(dev)), stream(dev))
     raise_on(err, "h264_deblock_wave")
-    h264_deblock_wave.launches += 1
+    count_launch(h264_deblock_wave)
 
 
 h264_deblock_wave.launches = 0
@@ -426,7 +426,7 @@ def h264_deblock_frame(ypad, upad, vpad, grids, mb_w: int, mb_h: int,
             ptr(ypad), ptr(upad), ptr(vpad), ptr(grids), mb_w, mb_h, a_off,
             b_off, ptr(edge_table(dev)), ptr(scratch), stream(dev))
     raise_on(err, "h264_deblock_frame")
-    h264_deblock_frame.launches += 1
+    count_launch(h264_deblock_frame)
 
 
 h264_deblock_frame.launches = 0

@@ -34,8 +34,8 @@ import math
 import numpy as np
 import torch
 
-from libav_tpu_torch._kernels import (check_int32, library, ptr, raise_on,
-                                      stream)
+from libav_tpu_torch._kernels import (check_int32, count_launch, library,
+                                      ptr, raise_on, stream)
 
 
 ROW_SHIFT = 11
@@ -139,7 +139,7 @@ def idct8x8_int(blocks: torch.Tensor) -> torch.Tensor:
             ptr(blocks), ptr(out), n,
             kernel_constants().ctypes.data_as(ctypes.c_void_p), stream(dev))
     raise_on(err, "idct8x8_int")
-    idct8x8_int.launches += 1
+    count_launch(idct8x8_int)
     return out
 
 
@@ -173,7 +173,7 @@ def idct8x8_int_cm(xT: torch.Tensor) -> torch.Tensor:
             ptr(xT), ptr(out), n,
             kernel_constants().ctypes.data_as(ctypes.c_void_p), stream(dev))
     raise_on(err, "idct8x8_int_cm")
-    idct8x8_int_cm.launches += 1
+    count_launch(idct8x8_int_cm)
     return out
 
 

@@ -47,7 +47,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from libav_tpu_torch._kernels import library, ptr, raise_on, stream
+from libav_tpu_torch._kernels import (count_launch, library, ptr,
+                                      raise_on, stream)
 
 
 class _Consts(ctypes.Structure):
@@ -165,7 +166,7 @@ def yuv2rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
             ctypes.cast(ctypes.pointer(consts), ctypes.c_void_p),
             stream(dev))
     raise_on(err, "yuv2rgb")
-    yuv2rgb.launches += 1
+    count_launch(yuv2rgb)
     return out
 
 

@@ -40,6 +40,9 @@ with the JAX decoders' digests in `legacy.golden.json` and the JAX CLI's
 JAX ProRes and FFV1 encoders' packet digests and decoders' frame digests
 on `pattern10` and `pattern` frames at 1080p, with the JAX CLI's output
 of their CLI runs (digests and framecrc text only).
+`devices_gop.golden.json` holds the JAX CLI's framecrc of DEVICE_CLI, the
+JAX encoders' packet digests and the JAX decoders' frame digests of
+GOP_STREAMS, and what the JAX avplay shows of the bench stream.
 All files are written by `tools/gen_torch_smoke_stream.py`.
 """
 
@@ -170,6 +173,27 @@ def prores_golden_path() -> str:
 
 def ffv1_golden_path() -> str:
     return os.path.join(HERE, "ffv1.golden.json")
+
+
+# the capture devices, GOP-parallel decode and avplay (chip_smoke.py phase
+# 20; devices_gop.golden.json): each device run's CLI arguments before
+# `-f framecrc OUT`, whose JAX-CLI output the golden holds; each
+# GOP-parallel stream's codec -> (width, height, frames of the pattern,
+# encoder settings), the golden holding the JAX encoder's packets (size,
+# md5), the source planes' adler32 and the JAX decoder's frame digests;
+# and the frames the JAX avplay shows of the bench stream with -vo null
+DEVICE_CLI = {
+    "testsrc": ("-f", "testsrc", "-i", "testsrc=1920x1080:rate=25:frames=8"),
+    "sine": ("-i", "sine=freq=1000:rate=48000:samples=96000"),
+}
+GOP_STREAMS = {
+    "mpeg2video": (1920, 1080, 8, {"qscale": 6, "gop_size": 2}),
+    "h264": (640, 352, 8, {"qp": 28, "gop_size": 2, "deblock": 1}),
+}
+
+
+def devices_gop_golden_path() -> str:
+    return os.path.join(HERE, "devices_gop.golden.json")
 
 
 def write_pattern10_yuv(directory: str, n: int = PRORES_FRAMES) -> str:

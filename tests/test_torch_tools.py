@@ -166,15 +166,19 @@ def test_avprobe_raises_device_faults(inputs, monkeypatch):
 ])
 def test_unported_parts_name_their_step(opts, step, inputs, tmp_path,
                                         capsys):
-    """A part of step 16 (the HLS muxer) is refused, naming its step.
-    Steps 11 and 15 are ported: their encoders run in the port's avconv
-    (ProRes from 10-bit rawvideo into MOV, FFV1 from the MPEG-2 stream
-    into AVI) and write the JAX CLI's bytes."""
+    """Steps 11, 15 and 16 are ported. Neither package has an HLS muxer:
+    `-f hls` fails in both CLIs with the same exit code and error text.
+    The ProRes and FFV1 encoders run in the port's avconv (ProRes from
+    10-bit rawvideo into MOV, FFV1 from the MPEG-2 stream into AVI) and
+    write the JAX CLI's bytes."""
     if step == "step 16":
         argv = ["-i", inputs["yuvj420p"], *opts, str(tmp_path / "o.avi")]
-        assert avconv.main(argv, device="cpu") == 1
-        err = capsys.readouterr().err
-        assert step in err and "libav_tpu_torch" in err
+        errs = []
+        for tool, kw in ((jax_avconv, {}), (avconv, {"device": "cpu"})):
+            assert tool.main(argv, **kw) == 1
+            errs.append(capsys.readouterr().err.splitlines()[-1])
+        assert errs[0] == errs[1] and "hls" in errs[1]
+        assert "libav_tpu_torch" not in errs[1]
         return
     if "prores" in opts:
         src = tmp_path / "p10.yuv"
@@ -249,22 +253,30 @@ def test_avconv_mpeg4_to_avi_matches_jax(inputs, tmp_path):
 
 def test_unported_decoders_name_their_step():
     """Every codec of the JAX package has its port since steps 11 and 15:
-    the refusal tables are empty and ProRes and FFV1 resolve to the
-    port's classes; an unknown codec is refused by name."""
+    the refusal tables are gone, ProRes and FFV1 resolve to the port's
+    classes, and an unknown codec is refused with the JAX package's
+    error text."""
+    from libav_tpu.avutil.error import AVError as JAVError
     from libav_tpu_torch.codecs import api as port_api
     from libav_tpu_torch.codecs.ffv1 import dec as ffv1_dec
     from libav_tpu_torch.codecs.ffv1 import enc as ffv1_enc
     from libav_tpu_torch.codecs.prores import dec as prores_dec
     from libav_tpu_torch.codecs.prores import enc as prores_enc
-    assert port_api.NOT_PORTED == {} and port_api.ENCODER_STEPS == {}
+    assert not hasattr(port_api, "NOT_PORTED")
+    assert not hasattr(port_api, "ENCODER_STEPS")
     assert find_encoder("ffv1") is ffv1_enc.FFV1Encoder
     assert find_encoder("prores") is prores_enc.ProresEncoder
     assert find_decoder("prores") is prores_dec.ProresDecoder
     assert find_decoder("ffv1") is ffv1_dec.FFV1Decoder
     assert set(jax_codecs.list_decoders()) <= set(port_api.list_decoders())
     assert set(jax_codecs.list_encoders()) <= set(port_api.list_encoders())
-    with pytest.raises(AVError, match="nosuchcodec"):
-        find_decoder("nosuchcodec")
+    for find, jax_find in ((find_decoder, jax_codecs.find_decoder),
+                           (find_encoder, jax_codecs.find_encoder)):
+        with pytest.raises(AVError, match="nosuchcodec") as got:
+            find("nosuchcodec")
+        with pytest.raises(JAVError) as want:
+            jax_find("nosuchcodec")
+        assert str(got.value) == str(want.value)
     dec = find_decoder("mjpeg")(device="cpu")
     assert dec.device == torch.device("cpu")
 
@@ -276,14 +288,17 @@ def test_unported_decoders_name_their_step():
 ])
 def test_unported_containers_name_their_step(name, data, step, tmp_path,
                                               capsys):
-    """An SDP file and an HLS playlist: the JAX package has their
-    demuxers and the port not yet; avconv says which step ports each."""
+    """An SDP file without a media line and an HLS playlist without a
+    segment (step 16 is ported): both CLIs refuse each with the same exit
+    code and the same error text."""
     src = tmp_path / name
     src.write_bytes(data)
-    assert avconv.main(["-i", str(src), "-f", "framecrc",
-                        str(tmp_path / "o.crc")], device="cpu") == 1
-    err = capsys.readouterr().err
-    assert step in err and "libav_tpu_torch" in err
+    errs = []
+    for tool, kw in ((jax_avconv, {}), (avconv, {"device": "cpu"})):
+        assert tool.main(["-i", str(src), "-f", "framecrc",
+                          str(tmp_path / "o.crc")], **kw) == 1
+        errs.append(capsys.readouterr().err.splitlines()[-1])
+    assert errs[0] == errs[1] and "libav_tpu_torch" not in errs[1]
 
 
 def test_cuda_request_fails_cleanly(inputs, tmp_path, capsys):

@@ -89,6 +89,14 @@ package's decoder, and written with its golden into
             packet's size, md5 and key flag, the JAX decoder's frame
             digests, and the md5 of the JAX CLI's testdata.FFV1_CLI run
             on ipbb.m2v with its `-i out.avi -f framecrc` output (~1 min)
+    devgop  devices_gop.golden.json: the JAX CLI's framecrc of
+            testdata.DEVICE_CLI (testsrc at 1920x1080, 8 frames; a 2 s
+            sine), testdata.GOP_STREAMS (8 pattern frames at GOP 2: MPEG-2
+            at 1920x1080, H.264 with deblocking at 640x352) through the
+            JAX encoders, each packet's size and md5 with the source
+            planes' adler32 and the JAX decoder's frame digests, and the
+            "N frames shown, M dropped" line of the JAX avplay with -vo
+            null on bench.h264 (~3 min)
     legacy  testdata.LEGACY's streams from tools/legacy_streams.py (H.263
             16CIF as .263; FLV1, MSMPEG4 v3, v2 and WMV1 at 1280x720 in
             FLV and AVI; 6 pictures each), legacy.golden.json with the JAX
@@ -103,7 +111,7 @@ framecrc, mpeg4 and config5 need the streams written first):
     JAX_PLATFORMS=cpu python tools/gen_torch_smoke_stream.py \
         [h264] [mpeg2] [mjpeg] [small] [framecrc] [mpeg4] [mpeg4asp] \
         [h264ext] [config5] [containers] [filters] [mpeg12enc] [legacy] \
-        [h264enc] [prores] [ffv1]
+        [h264enc] [prores] [ffv1] [devgop]
 """
 
 from __future__ import annotations
@@ -854,6 +862,43 @@ def write_ffv1():
     print(f"ffv1: {len(datas)} packets, {sum(map(len, datas))} bytes")
 
 
+def write_devices_gop():
+    """devices_gop.golden.json (see the module docstring)."""
+    from libav_tpu.tools import avconv, avplay
+    gold = {"devices": {}, "gop": {}}
+    work = tempfile.mkdtemp()
+    try:
+        for name, args in testdata.DEVICE_CLI.items():
+            dst = os.path.join(work, name + ".crc")
+            if avconv.main([*args, "-f", "framecrc", dst]) != 0:
+                raise SystemExit(f"avconv {' '.join(args)} failed")
+            with open(dst) as f:
+                gold["devices"][name] = {"args": list(args),
+                                         "framecrc": f.read()}
+            print(f"{name}: framecrc")
+        bench_h264 = testdata.write_cli_input("h264_1080p_ipbb_cabac", work)
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            if avplay.play(bench_h264, vo="null") != 0:
+                raise SystemExit("avplay -vo null bench.h264 failed")
+        gold["avplay_null"] = err.getvalue().strip().splitlines()[-1]
+        print(gold["avplay_null"])
+    finally:
+        shutil.rmtree(work)
+    for codec, (w, h, n, settings) in testdata.GOP_STREAMS.items():
+        datas = encode(w, h, n, codec, settings)
+        gold["gop"][codec] = {
+            "source": [testdata.plane_adler32(testdata.pattern(w, h, t))
+                       for t in range(n)],
+            "packets": _packets(datas),
+            "decode": testdata.digest(decode_reference(datas, codec))}
+        print(f"{codec} {w}x{h}: {len(datas)} packets, "
+              f"{sum(map(len, datas))} bytes")
+    with open(testdata.devices_gop_golden_path(), "w") as f:
+        json.dump(gold, f, indent=1)
+        f.write("\n")
+
+
 def main(which):
     if "h264" in which:
         write(testdata.SMOKE_STREAM, testdata.SMOKE_GOLDEN,
@@ -900,10 +945,12 @@ def main(which):
         write_prores()
     if "ffv1" in which:
         write_ffv1()
+    if "devgop" in which:
+        write_devices_gop()
 
 
 if __name__ == "__main__":
     main(sys.argv[1:] or ("h264", "mpeg2", "mjpeg", "small", "framecrc",
                           "mpeg4", "mpeg4asp", "h264ext", "config5",
                           "containers", "filters", "mpeg12enc", "legacy",
-                          "h264enc", "prores", "ffv1"))
+                          "h264enc", "prores", "ffv1", "devgop"))
