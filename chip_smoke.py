@@ -683,6 +683,71 @@ def wave_deblock():
         tdev.recon_h264_sparse = build
 
 
+@contextlib.contextmanager
+def intra_capture(store):
+    """Inside, each launch of the intra assembly kernel by the H.264
+    decoder appends its arguments to store, so a picture's inputs stay
+    for a check against the plain twin and for timing. Measurement
+    only."""
+    from libav_tpu_torch.codecs.h264 import device as tdev
+    kernel = tdev.h264_intra_frame
+
+    def run(*args):
+        store.append(args)
+        return kernel(*args)
+    tdev.h264_intra_frame = run
+    try:
+        yield store
+    finally:
+        tdev.h264_intra_frame = kernel
+
+
+def intra_kernel_check(args, card):
+    """h264_intra_frame on one picture's captured arguments against its
+    plain twin (ReconH264._wavefront), then its time: per call by CUDA
+    events, on the device warm and cold by the profiler, the plain twin's
+    synchronised ms, and the bound: every input the kernel reads (as
+    int32) and the three bordered planes written once."""
+    import torch
+    from libav_tpu_torch.codecs.h264.device import ReconH264
+    from libav_tpu_torch.ops.h264intra import h264_intra_frame
+    mb_w, mb_h, any_i4, any_i8, any_ipcm = args[:5]
+    intra, lm, cm, row_top, i4, i4m, t8, pred, resid, pcm = args[5:]
+
+    def call():
+        return h264_intra_frame(*args)
+    got = call()
+    plain = ReconH264(mb_w, mb_h, any_i4=any_i4, any_i8=any_i8,
+                      any_ipcm=any_ipcm).to(intra.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain._wavefront(*args[5:])
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            raise AssertionError("h264_intra_frame differs from "
+                                 "ReconH264._wavefront")
+    read = [intra, lm, cm, row_top, *pred, *resid]
+    read += [i4, i4m] + ([t8] if any_i8 else []) if any_i4 else []
+    read += list(pcm) if any_ipcm else []
+    nbytes = 4 * sum(t.numel() for t in read + list(got) if t is not None)
+    out = {"mb_w": mb_w, "mb_h": mb_h, "ms": event_ms(call),
+           "device_ms": kernel_device_ms(call, "intra_frame_kernel",
+                                         h264_intra_frame, reps=10),
+           "cold_device_ms": kernel_device_ms(
+               call, "intra_frame_kernel", h264_intra_frame, reps=10,
+               cold=True),
+           "plain_ms": plain_ms, "bound_ms": nbytes / HBM_BYTES_PER_MS,
+           "bytes": nbytes}
+    log(f"phase 4 h264_intra_frame on the I picture ({mb_w}x{mb_h} MBs): "
+        f"equal to ReconH264._wavefront; {out['ms']:.4f} ms per call by "
+        f"CUDA events, {out['device_ms']:.4f} ms on the device warm, "
+        f"{out['cold_device_ms']:.4f} cold; bound {out['bound_ms']:.4f} "
+        f"ms ({nbytes} bytes); plain twin {plain_ms:.1f} ms [{card}]")
+    return out
+
+
 def check_golden(host, gold, tag):
     from libav_tpu_torch import testdata
     got = testdata.digest(host)
@@ -701,32 +766,48 @@ def phase_decode(dev, card):
     from libav_tpu_torch import testdata
     from libav_tpu_torch.codecs.h264 import dec as h264dec
     from libav_tpu_torch.ops import h264deblock as db
+    from libav_tpu_torch.ops.h264intra import h264_intra_frame
     datas = testdata.read_packets(testdata.SMOKE_STREAM)
     gold = testdata.load_golden()
     nframes = len(gold["frames"])
 
     db.h264_deblock_frame.launches = db.h264_deblock_wave.launches = 0
-    db.h264_edge_filter_lines.launches = 0
-    host, cold_s, recon_ms = decode(dev, datas, time_recon=True)
+    db.h264_edge_filter_lines.launches = h264_intra_frame.launches = 0
+    intra_calls = []
+    with intra_capture(intra_calls):
+        host, cold_s, recon_ms = decode(dev, datas, time_recon=True)
     launches = (db.h264_deblock_frame.launches,
                 db.h264_deblock_wave.launches,
                 db.h264_edge_filter_lines.launches)
+    intra_launches = h264_intra_frame.launches
     check_golden(host, gold, "first decode")
     if launches != (nframes, 0, 0):
         raise AssertionError(f"h264_deblock_frame, h264_deblock_wave and "
                              f"h264_edge_filter_lines launched {launches} "
                              f"times, expected ({nframes}, 0, 0)")
+    if not intra_launches == len(intra_calls) >= 1:
+        raise AssertionError(f"h264_intra_frame launched {intra_launches} "
+                             f"times for {len(intra_calls)} intra "
+                             f"assemblies")
     names = {1: "I", 2: "P", 3: "B"}
     per = ", ".join(f"{names.get(pt, pt)} {ms:.1f}" for pt, ms in recon_ms)
     log(f"phase 4 first decode: {nframes} frames adler32+md5 identical to "
         f"the golden, {launches[0]} frame deblock launches and "
-        f"{launches[1]} wave launches, {cold_s:.2f} s; per-frame recon ms "
+        f"{launches[1]} wave launches, {intra_launches} h264_intra_frame "
+        f"launches, {cold_s:.2f} s; per-frame recon ms "
         f"(synchronised): {per}")
 
     n0, s0 = h264dec.host_entropy_stats()
     host, warm_s, warm_recon = decode(dev, datas, time_recon=True)
     n1, s1 = h264dec.host_entropy_stats()
     check_golden(host, gold, "second decode")
+    if h264_intra_frame.launches != 2 * intra_launches:
+        raise AssertionError(f"h264_intra_frame launched "
+                             f"{h264_intra_frame.launches - intra_launches} "
+                             f"times in the warm decode, {intra_launches} "
+                             f"in the first")
+    intra = intra_kernel_check(intra_calls[0], card)
+    intra["launches"] = intra_launches
     DECODED["h264_1080p_ipbb_cabac"] = host[:2]
     fps = nframes / warm_s
     entropy_ms = 1e3 * (s1 - s0) / max(1, n1 - n0)
@@ -749,7 +830,7 @@ def phase_decode(dev, card):
             f"{seconds:.3f} s, I recon {i_ms:.1f} ms, mean P/B recon "
             f"{sum(pb) / len(pb):.2f} ms (synchronised: "
             f"{', '.join(f'{ms:.1f}' for ms in pb)})")
-    return launches, fps
+    return launches, fps, intra
 
 
 def phase_idct(dev):
@@ -3631,7 +3712,7 @@ def main():
 
     lines = phase_lines(dev)
     deblock = phase_deblock(dev)
-    launches, h264_fps = phase_decode(dev, card)
+    launches, h264_fps, intra = phase_decode(dev, card)
     k2 = phase_idct(dev)
     k2_launches, mpeg2_fps = phase_mpeg2(dev, card)
     phase_interlace(dev)
@@ -3745,6 +3826,32 @@ def main():
                      f"38,016 (16CIF): {k2[38016][0]} ms, plain "
                      f"{k2[38016][1]} ms; at 21,600 (720p): "
                      f"{k2[21600][0]} ms, plain {k2[21600][1]} ms",
+        },
+        {
+            "name": "h264_intra_frame",
+            "route": "cuda",
+            "source": "libav_tpu_torch/csrc/h264_intra.cu",
+            "replaces": None,
+            "replaces_is": "no TPU kernel: the port's host-launched "
+                           "wavefront ReconH264._wavefront, its plain twin",
+            "launches": intra["launches"],
+            "max_abs_err": 0,
+            "ms": intra["ms"],
+            "plain_ms": intra["plain_ms"],
+            "device_ms": intra["device_ms"],
+            "cold_device_ms": intra["cold_device_ms"],
+            "bound_ms": intra["bound_ms"],
+            "bound_by": "bytes (the time is the dependency chain's)",
+            "library_ms": None,
+            "library": "none: I_4x4/I_8x8 chains and availability rules "
+                       "per macroblock",
+            "ms_is": f"the bench stream's I picture ({intra['mb_w']}x"
+                     f"{intra['mb_h']} MBs), per call by CUDA events; "
+                     f"device_ms by torch.profiler (cold_device_ms with "
+                     f"the L2 flushed between launches); plain_ms is "
+                     f"ReconH264._wavefront, synchronised; bound: "
+                     f"{intra['bytes']} bytes of inputs read as int32 and "
+                     f"bordered planes written; launches: per bench decode",
         },
         probe_record("mpv_idct8x8_cm", "mpv_idct.cu", 30,
                      "48,896 blocks as (64, B)", probe["idct"],

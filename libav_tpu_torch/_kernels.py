@@ -41,6 +41,10 @@ SIGNATURES = {
     "h264_deblock_wave": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     # y, u, v, grids, mb_w, mb_h, a_off, b_off, tab, scratch, stream
     "h264_deblock_frame": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    # fy, fu, fv, pred y/u/v, resid y/u/v, intra, luma_mode, chroma_mode,
+    # i4, i4_modes, t8, row_top, ipcm, pcm y/u/v, mb_w, mb_h, scratch,
+    # stream
+    "h264_intra_frame": (_P,) * 20 + (_I, _I, _P, _P),
     # in, out, n, consts (host), stream
     "mpv_idct8x8": (_P, _P, _I, _P, _P),
     "mpv_idct8x8_cm": (_P, _P, _I, _P, _P),

@@ -8,8 +8,11 @@ The stages per frame are the JAX package's:
   2. inter prediction: quarter-pel luma and eighth-pel chroma MC, per MB
      or per 4x4 block (part=True), one or two lists, 1..n references;
   3. assembly: all-inter frames add prediction and residual in one pass;
-     frames with intra MBs walk the macroblock wavefronts (x+y, or x+2y
-     with I_4x4/I_8x8) in a Python loop, one batched step per wave;
+     frames with intra MBs go through the intra wavefront: on the card
+     one launch of the hand-written CUDA kernel h264_intra_frame
+     (ops/h264intra.py), on the CPU its plain twin, which walks the
+     macroblock waves (x+y, or x+2y with I_4x4/I_8x8) in a Python loop,
+     one batched step per wave;
   4. deblock: the frame deblock of ops/h264deblock.py: the bS/qp grids
      in torch ops (field pictures under the field rules), then every edge
      of the picture in one launch of the hand-written CUDA kernel K1
@@ -20,10 +23,10 @@ in the JAX program), I_PCM (inside the intra wavefront, so later intra
 neighbours read the raw samples) and the PAFF cross-parity chroma offset
 (16x16 path only, as in the JAX program) are part of stages 2 and 3.
 
-PyTorch runs eagerly, so the wave loops are host loops over small kernels;
-the wave steps only ever touch a wave's real macroblocks (the JAX program
-pads every wave to a fixed width and parks the padding in a scratch
-margin, which changes nothing in the picture).
+PyTorch runs eagerly, so the plain wave loop is a host loop over small
+kernels; its wave steps only ever touch a wave's real macroblocks (the
+JAX program pads every wave to a fixed width and parks the padding in a
+scratch margin, which changes nothing in the picture).
 
 Per-geometry constants (wave tables, LevelScale tables) are registered
 buffers of an nn.Module, built by an lru_cached factory with the key of
@@ -45,6 +48,7 @@ from libav_tpu_torch.ops import h264mc, h264pred
 from libav_tpu_torch.ops.h264deblock import (chroma_qp_table,
                                              deblock_frame_exact,
                                              h264_deblock_frame)
+from libav_tpu_torch.ops.h264intra import h264_intra_frame
 from libav_tpu_torch.ops.h264transform import (chroma_dc_2x2, hadamard4x4,
                                                idct4x4, idct8x8_h264)
 from libav_tpu_torch.ops.mc import EDGE, pad_plane
@@ -404,11 +408,16 @@ class ReconH264(nn.Module):
                                 (pred_v, resid_v, 8)))
             return planes, tuple(pad_plane(p) for p in planes)
 
-        with timer.timer("h264.recon.intra"):
-            fy, fu, fv = self._wavefront(
-                intra, luma_mode, chroma_mode, row_top, i4, i4_modes, t8,
+        args = (intra, luma_mode, chroma_mode, row_top, i4, i4_modes, t8,
                 (pred_y, pred_u, pred_v), (resid_y, resid_u, resid_v),
                 (ipcm, ipcm_y, ipcm_u, ipcm_v))
+        with timer.timer("h264.recon.intra"):
+            if intra.device.type == "cpu":
+                fy, fu, fv = self._wavefront(*args)
+            else:
+                fy, fu, fv = h264_intra_frame(
+                    self.mb_w, self.mb_h, self.any_i4, self.any_i8,
+                    self.any_ipcm, *args)
         H, W = 16 * self.mb_h, 16 * self.mb_w
         planes = (fy[1:1 + H, 1:1 + W].to(torch.uint8),
                   fu[1:1 + H // 2, 1:1 + W // 2].to(torch.uint8),
@@ -417,9 +426,11 @@ class ReconH264(nn.Module):
 
     def _wavefront(self, intra, luma_mode, chroma_mode, row_top, i4,
                    i4_modes, t8, pred, resid, pcm):
-        """The intra assembly: one batched step per MB wave. Frame buffers
-        carry a 1-pixel top/left border (128) and a right/bottom margin
-        that the I_4x4 top-right reads of the last column land in."""
+        """The intra assembly: one batched step per MB wave; the plain
+        twin of the kernel `h264_intra_frame` (one launch per picture),
+        which CUDA tensors take. Frame buffers carry a 1-pixel top/left
+        border (128) and a right/bottom margin that the I_4x4 top-right
+        reads of the last column land in."""
         mb_w, mb_h = self.mb_w, self.mb_h
         H, W = 16 * mb_h, 16 * mb_w
         dev = intra.device
@@ -443,6 +454,8 @@ class ReconH264(nn.Module):
             pcm_y, pcm_u, pcm_v = (p.to(i32) for p in pcm[1:])
 
         for w, count in enumerate(self.wave_counts):
+            if not count:
+                continue        # x+2y waves of a 1-MB-wide picture
             wt = self.wave_tab[w, :count]
             idx, bx, by = wt[:, 0], wt[:, 1], wt[:, 2]
             y0, x0 = by * 16 + 1, bx * 16 + 1

@@ -537,6 +537,19 @@ class TestRecon:
         for g, w in zip(got[0] + got[1], want[0] + want[1]):
             _eq(g, w)
 
+    @pytest.mark.parametrize("variant", ["I", "Ipcm"])
+    def test_dense_one_mb_wide_vs_jax(self, variant):
+        """A 1-MB-wide picture with I_4x4/I_8x8: the x+2y order leaves
+        every other wave empty, which the wave loop skips."""
+        mb_w, mb_h = 1, 4
+        key, args = _dense_case(variant, mb_w=mb_w, mb_h=mb_h)
+        assert key["any_i4"]
+        want = jdev.recon_h264_jit(mb_w, mb_h, **key)(**args)
+        got = tdev.recon_h264(mb_w, mb_h, **key, device=CPU)(
+            **state_from_numpy(args, CPU))
+        for g, w in zip(got[0] + got[1], want[0] + want[1]):
+            _eq(g, w)
+
     def test_unported_flags_raise(self):
         """The flags the port refused before (weighted prediction, I_PCM,
         the cross-parity chroma offset, field pictures) build programs

@@ -17,7 +17,10 @@ import pytest
 import torch
 
 from libav_tpu_torch import testdata
+from libav_tpu_torch.avutil import timer
+from libav_tpu_torch.codecs.h264 import device as tdev
 from libav_tpu_torch.ops import h264deblock as tdb
+from libav_tpu_torch.ops import h264intra
 from libav_tpu_torch.ops import idct as tidct
 from libav_tpu_torch.swscale import yuv2rgb as sws_yuv2rgb
 
@@ -75,6 +78,52 @@ def deblock_inputs(seed, mb_w, mb_h, part):
     return (yp, up, vp, intra, qp, nnz, mv0, pid0, mv1, pid1), t8
 
 
+def intra_inputs(seed, mb_w, mb_h):
+    """Random inputs of the intra assembly (`ReconH264._wavefront`'s
+    arguments, numpy): intra and inter MBs; I_16x16 and chroma in all 4
+    modes, I_4x4 and I_8x8 in all 9, a few modes out of range; small
+    residuals and a tenth of the MBs with large ones (both clamps); a
+    twentieth I_PCM; slice starts in row_top."""
+    rng = np.random.default_rng(seed)
+    nmb = mb_w * mb_h
+    lm = rng.integers(0, 4, nmb)
+    cm = rng.integers(0, 4, nmb)
+    i4m = rng.integers(0, 9, (nmb, 16))
+    odd = rng.random(nmb) < 0.05
+    lm[odd] = rng.integers(-3, 8, odd.sum())
+    cm[odd] = rng.integers(-3, 8, odd.sum())
+    odd4 = rng.random((nmb, 16)) < 0.03
+    i4m[odd4] = rng.integers(-12, 14, odd4.sum())
+    big = rng.random((nmb, 1, 1)) < 0.1
+
+    def samples(s):
+        return rng.integers(0, 256, (nmb, s, s)).astype(np.int32)
+
+    def resid(s):
+        small = rng.integers(-12, 13, (nmb, s, s))
+        return np.where(big, rng.integers(-300, 300, (nmb, s, s)),
+                        small).astype(np.int32)
+    row_top = rng.random(mb_h) >= 0.2
+    row_top[0] = False
+    return dict(
+        intra=rng.random(nmb) < 0.8, luma_mode=lm.astype(np.int8),
+        chroma_mode=cm.astype(np.int8), row_top=row_top,
+        i4=rng.random(nmb) < 0.6, i4_modes=i4m.astype(np.int8),
+        t8=rng.random(nmb) < 0.5,
+        pred=(samples(16), samples(8), samples(8)),
+        resid=(resid(16), resid(8), resid(8)),
+        pcm=(rng.random(nmb) < 0.05,
+             *(samples(s).astype(np.uint8) for s in (16, 8, 8))))
+
+
+def intra_args(inputs, dev):
+    """intra_inputs as `_wavefront`'s positional arguments on dev."""
+    def t(a):
+        return None if a is None else _t(a).to(dev)
+    return tuple(tuple(t(a) for a in v) if isinstance(v, tuple) else t(v)
+                 for v in inputs.values())
+
+
 DEBLOCK_CASES = [
     # (part, any_t8, a_off, b_off, cqpo)
     (False, False, 0, 0, (0, 0)),
@@ -102,6 +151,10 @@ def test_wrappers_refuse_devices_without_a_kernel():
         tidct.idct8x8_int_cm(blocks.reshape(4, 64).T)
     with pytest.raises(ValueError, match="no kernel"):
         tdb.h264_edge_filter_pm(lines.T, v, v)
+    for dev in (meta, torch.device("cpu")):
+        with pytest.raises(ValueError, match="no kernel"):
+            h264intra.h264_intra_frame(1, 1, True, True, True, *intra_args(
+                intra_inputs(0, 1, 1), dev))
 
 
 def test_sws_yuv2rgb_refuses_devices_without_a_kernel():
@@ -216,6 +269,81 @@ class TestKernelsOnCard:
         for _ in range(20):
             again = fn(*args, **kw)
             for g, w in zip(again, got):
+                assert torch.equal(g, w)
+
+    @pytest.mark.parametrize("mb_w,mb_h", [(1, 1), (1, 2), (2, 1), (2, 2),
+                                           (1, 5), (5, 1), (2, 7), (7, 2),
+                                           (120, 34), (120, 68)])
+    @pytest.mark.parametrize("any_i4,any_i8,any_ipcm,row_top",
+                             [(True, True, True, True),
+                              (True, False, False, True),
+                              (False, False, True, False)])
+    def test_intra_frame(self, mb_w, mb_h, any_i4, any_i8, any_ipcm,
+                         row_top):
+        """The intra assembly kernel against its plain twin, byte for
+        byte: one launch, one `h264.intra.kernel` count; at 120x34 and
+        120x68 MBs, 20 more launches identical (the race check)."""
+        dev = torch.device("cuda", 0)
+        inputs = intra_inputs(100 + mb_w + 3 * mb_h, mb_w, mb_h)
+        if not row_top:
+            inputs["row_top"] = None
+        args = intra_args(inputs, dev)
+        flags = (any_i4, any_i8, any_ipcm)
+        before = h264intra.h264_intra_frame.launches
+        counted = timer.counters().get("h264.intra.kernel", 0)
+        got = h264intra.h264_intra_frame(mb_w, mb_h, *flags, *args)
+        torch.cuda.synchronize()
+        assert h264intra.h264_intra_frame.launches == before + 1
+        assert timer.counters()["h264.intra.kernel"] == counted + 1
+        plain = tdev.ReconH264(mb_w, mb_h, any_i4=any_i4, any_i8=any_i8,
+                               any_ipcm=any_ipcm).to(dev)
+        want = plain._wavefront(*args)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        for _ in range(20 if mb_w * mb_h > 1000 else 0):
+            again = h264intra.h264_intra_frame(mb_w, mb_h, *flags, *args)
+            for g, w in zip(again, got):
+                assert torch.equal(g, w)
+
+    @pytest.mark.parametrize("name", ["h264_1080p_ipbb_cabac",
+                                      "h264_1080p_ipcm", "h264_1088i_paff",
+                                      "h264_1088i_mbaff"])
+    def test_intra_frame_on_streams(self, monkeypatch, name):
+        """The committed streams decode on the card to the JAX decoder's
+        frames, one kernel launch per picture with an intra MB; on their
+        first two all-intra pictures (frames, PAFF fields, MBAFF halves)
+        the kernel equals its plain twin."""
+        from libav_tpu_torch.avutil.frame import Packet
+        from libav_tpu_torch.codecs.h264 import H264Decoder
+        dev = torch.device("cuda", 0)
+        path, golden = testdata.stream_paths(name)
+        kernel, kept, calls = h264intra.h264_intra_frame, [], [0]
+
+        def capturing(*args):
+            calls[0] += 1
+            out = kernel(*args)
+            if len(kept) < 2 and bool(args[5].bool().all()):
+                kept.append((args, [o.clone() for o in out]))
+            return out
+        monkeypatch.setattr(tdev, "h264_intra_frame", capturing)
+        before = kernel.launches
+        dec = H264Decoder(device=dev)
+        try:
+            frames = dec.decode_all(
+                Packet(data=d, pts=i)
+                for i, d in enumerate(testdata.read_packets(path)))
+            host = [f.to_host().planes for f in frames]
+        finally:
+            dec.close()
+        assert testdata.digest(host) == testdata.load_golden(golden)
+        assert kernel.launches - before == calls[0] >= len(kept) >= 1
+        for args, got in kept:
+            mb_w, mb_h, any_i4, any_i8, any_ipcm = args[:5]
+            plain = tdev.ReconH264(mb_w, mb_h, any_i4=any_i4,
+                                   any_i8=any_i8,
+                                   any_ipcm=any_ipcm).to(dev)
+            want = plain._wavefront(*args[5:])
+            for g, w in zip(got, want):
                 assert torch.equal(g, w)
 
     @pytest.mark.parametrize("B", [1, 7, 3072, 48960])

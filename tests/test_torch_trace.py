@@ -22,6 +22,7 @@ from libav_tpu_torch.codecs.api import CodecParameters, MediaType
 from libav_tpu_torch.codecs.h264 import dec as h264dec
 from libav_tpu_torch.codecs.h264 import nal
 from libav_tpu_torch.codecs.h264.device import ReconH264
+from libav_tpu_torch.ops import h264intra
 from libav_tpu_torch.bitstream.getbits import GetBits
 from libav_tpu_torch.formats.h264raw import split_access_units
 
@@ -244,6 +245,25 @@ def test_h264_span_counts(monkeypatch, path):
         assert {r[5]["path"] for r in of
                 if r[0] == "h264.entropy.slice"} == {path}
     assert {r[1] for r in spans_named("h264.recon.intra")} == {"h264.recon"}
+
+
+def test_h264_cpu_decode_takes_the_plain_wavefront(monkeypatch):
+    """On CPU tensors ReconH264.forward runs the plain twin: `_wavefront`
+    runs once per intra assembly, and neither the kernel's launch count
+    nor the recorder's `h264.intra.kernel` counter moves."""
+    calls = [0]
+    wavefront = ReconH264._wavefront
+
+    def counted(self, *a, **kw):
+        calls[0] += 1
+        return wavefront(self, *a, **kw)
+    monkeypatch.setattr(ReconH264, "_wavefront", counted)
+    launches = h264intra.h264_intra_frame.launches
+    timer.enable()
+    decode("h264", h264_aus())
+    assert calls[0] == timer.stats()["h264.recon.intra"][0] >= 1
+    assert h264intra.h264_intra_frame.launches == launches
+    assert "h264.intra.kernel" not in timer.counters()
 
 
 def mpeg2_stream(fieldpic):
