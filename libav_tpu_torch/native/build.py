@@ -124,6 +124,13 @@ def _compile() -> str:
     return modname
 
 
+def disabled() -> bool:
+    """Whether LIBAV_TPU_NO_NATIVE asks for the Python paths. Read on
+    every call: tests set it after the library has loaded, to run the
+    H.264 decoder's Python twin."""
+    return bool(os.environ.get("LIBAV_TPU_NO_NATIVE"))
+
+
 def get_lib():
     global _lib, _ffi, _tried
     if _lib is not None or _tried:
@@ -132,7 +139,7 @@ def get_lib():
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if os.environ.get("LIBAV_TPU_NO_NATIVE"):
+        if disabled():
             return None
         modname = f"_libav_tpu_native_{_source_hash()}"
         sys.path.insert(0, str(_BUILD))

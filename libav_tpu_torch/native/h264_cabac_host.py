@@ -90,6 +90,19 @@ def reset_arena(v: dict):
     v["sctx"][1] = 0
 
 
+def _check_grids(bref, bmv, nnz_y=None):
+    """The arena's int32 block grids, checked before their pointers go
+    to C (cffi refuses a buffer that is not C-contiguous)."""
+    ok = (bref.dtype == bmv.dtype == np.int32 and bref.ndim == 3
+          and bmv.shape == bref.shape + (2,))
+    if nnz_y is not None:
+        ok = ok and nnz_y.dtype == np.int32 and nnz_y.shape == bref.shape[1:]
+    if not ok:
+        raise ValueError("block grids must be the int32 arena views: "
+                         f"bref {bref.dtype} {bref.shape}, bmv {bmv.dtype} "
+                         f"{bmv.shape}")
+
+
 def col_pack(bref: np.ndarray, bmv: np.ndarray, l0pocs: np.ndarray,
              l1pocs: np.ndarray) -> np.ndarray:
     """One-pass packed colocated-motion export: (bh, bw, 4) int32 rows
@@ -97,6 +110,7 @@ def col_pack(bref: np.ndarray, bmv: np.ndarray, l0pocs: np.ndarray,
     are the contiguous int32 arena views; l0pocs/l1pocs carry a
     trailing-0 sentinel."""
     from libav_tpu_torch.native.build import get_lib, get_ffi
+    _check_grids(bref, bmv)
     lib = get_lib()
     ffi = get_ffi()
     _, bh, bw = bref.shape
@@ -149,8 +163,8 @@ def export_blocks(bref, bmv, nnz_y, nrefs, nrefs1, l0pid, l1pid,
     """One C pass packing the block-granular device transport from the
     int32 arena grids (bref (2,bh,bw), bmv (2,bh,bw,2)) into the final
     dtypes the recon program consumes.  Returns the kw fragment."""
-    import numpy as np
     from libav_tpu_torch.native.build import get_lib, get_ffi
+    _check_grids(bref, bmv, nnz_y if want_nnz else None)
     lib = get_lib()
     ffi = get_ffi()
     _, bh, bw = bref.shape
