@@ -3,16 +3,19 @@ mpeg_decode_frame :2516 -> decode_chunks :2250 -> mpeg_decode_slice :1642,
 per-MB mpeg_decode_mb :659 + ff_mpv_decode_mb path mpegvideo.c:1700).
 
 Host: start-code walk, headers, per-slice entropy decode producing
-whole-frame tensors; device: one dequant+IDCT+MC+add program per frame
-geometry (the port's `codecs/mpegvideo.py` modules on the decoder's torch
-device, kernel K2 for the IDCT).
+whole-frame tensors (native/mpeg12_slice.c, with the Python MB loop
+`_decode_slice_py` as its twin); device: one dequant+IDCT+MC+add program
+per frame geometry (the port's `codecs/mpegvideo.py` modules on the
+decoder's torch device, kernel K2 for the IDCT).
 
 This is the JAX package's host decoder, copied (libav_tpu/codecs/mpeg12/
 dec.py): start codes, headers, slice entropy, concealment, the DPB, field
-pairing, the output crop and reordering are its code. Only the places
-that reach a device program differ: `_reconstruct` (frame pictures),
+pairing, the output crop and reordering are its code. What differs: the
+places that reach a device program, `_reconstruct` (frame pictures),
 `_reconstruct_field` (field pictures), `_finish_field` (the weave of a
-field pair) and `_zero_refs`. The numpy inputs go to the device
+field pair) and `_zero_refs`; and `_decode_slice`, which runs the native
+slice decoder where the library is built, the copied MB loop
+(`_decode_slice_py`) being its twin. The numpy inputs go to the device
 synchronously (hwdevice.state_from_numpy) on the thread that decodes.
 
 Supported: MPEG-1 I/P/B CPB; MPEG-2 main profile frame pictures
@@ -42,6 +45,7 @@ from libav_tpu_torch.bitstream import GetBits
 from libav_tpu_torch.codecs import mpegvideo
 from libav_tpu_torch.codecs.api import Decoder, MediaType, register_codec
 from libav_tpu_torch.codecs.mpeg12 import tables as T
+from libav_tpu_torch.native import mpeg12_slice
 from libav_tpu_torch.ops.quant import zigzag_scan, alternate_scan
 
 # picture_coding_type
@@ -491,6 +495,21 @@ class MPEG1Decoder(Decoder):
                   *f0t, *f0b, *f1t, *f1b, **kw)
 
     def _decode_slice(self, code: int, seg: bytes, mb: MBData):
+        """One slice's entropy decode into `mb`: the native C decoder
+        (native/mpeg12_slice.c) when the library is built and not
+        switched off, else its Python twin `_decode_slice_py`. Both write
+        the same arrays and raise the same error at the same MB; the port
+        counters mpeg2.slice.native and mpeg2.slice.python count which
+        ran."""
+        if mpeg12_slice.available():
+            timer.count("mpeg2.slice.native")
+            mpeg12_slice.decode_slice(seg, mb, self.seq, self.pic,
+                                      self._cur_mb_h(), code - 1)
+        else:
+            timer.count("mpeg2.slice.python")
+            self._decode_slice_py(code, seg, mb)
+
+    def _decode_slice_py(self, code: int, seg: bytes, mb: MBData):
         """reference: mpeg12dec.c mpeg_decode_slice :1642"""
         seq, pic = self.seq, self.pic
         gb = GetBits(seg)

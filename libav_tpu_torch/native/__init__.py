@@ -1,6 +1,7 @@
 """Native (C) host-side hot loops, compiled on demand via cffi
 (counterpart of `libav_tpu/native`, copied: the CABAC and CAVLC slice
-decoders of H.264 and the MJPEG scan decoder, with their headers).
+decoders of H.264 and the MJPEG scan decoder, with their headers; the
+MPEG-1/2 slice decoder, `mpeg12_slice.c`, is the port's own).
 
 The serial bitstream code (entropy decode) stays on the host: C
 implementations of the frame-rate scan/slice entropy loops, each with a

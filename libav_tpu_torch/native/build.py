@@ -39,10 +39,15 @@ int jpeg_encode_scan(
     unsigned char *out_buf, long long out_cap, long long *out_len);
 """),
     ("mpeg12_slice.c", r"""
-int mpeg12_decode_slices(
+int mpeg12_decode_slice(
     const unsigned char *buf, long long buf_size,
-    const int *params,
-    short *coeffs, int *mb_meta, short *mvs);
+    const int *params, const int *tables,
+    short *coeffs, int *qscale, unsigned char *intra,
+    unsigned char *use_fwd, unsigned char *use_bwd,
+    int *mv_fwd, int *mv_bwd, unsigned char *coded, unsigned char *ok,
+    unsigned char *field_mc, unsigned char *dct_field,
+    int *mv_fwd2, int *mv_bwd2, int *sel_fwd, int *sel_bwd,
+    unsigned char *dp, int *mv_dp2, int *sel_dp, int *info);
 """),
     ("mpeg4_enc.c", r"""
 int mpeg4_encode_mbs(

@@ -24,6 +24,7 @@ from libav_tpu_torch.codecs.api import CodecParameters, MediaType
 from libav_tpu_torch.codecs.h264 import dec as h264dec
 from libav_tpu_torch.codecs.h264 import nal
 from libav_tpu_torch.codecs.h264.device import ReconH264
+from libav_tpu_torch.native import mpeg12_slice
 from libav_tpu_torch.ops import h264intra
 from libav_tpu_torch.bitstream.getbits import GetBits
 from libav_tpu_torch.formats.h264raw import split_access_units
@@ -361,7 +362,13 @@ def test_mpeg2_span_counts(fieldpic):
     # one upload per picture, and one more per field pair (its weave)
     assert counts["upload"] == pictures + fieldpic * len(frames)
     assert counts["download"] == len(frames)
-    assert timer.counters().get("programs.built", 0) == 0
+    counters = timer.counters()
+    assert counters.get("programs.built", 0) == 0
+    # one engine counter per slice: all native once the library is built
+    native = counters.get("mpeg2.slice.native", 0)
+    assert native + counters.get("mpeg2.slice.python", 0) == slices
+    if mpeg12_slice.available():
+        assert native == slices
     recs = timer.records()
     for pic in range(pictures):
         names = [r[0] for r in recs if r[5].get("pic") == pic]
