@@ -343,7 +343,16 @@ class MPEG1Decoder(Decoder):
             if n:
                 log.warning(self, "concealed %d missing MBs", n)
                 self._concealed_inter = True
-        with timer.timer("mpeg2.recon", pic=self._pic_no):
+        if pic.pict_type == PICT_B:
+            timer.count("mpeg2.mb.b", nmb)
+            timer.count("mpeg2.mb.bipred",
+                        int(np.count_nonzero(mb.use_fwd & mb.use_bwd)))
+            inner = timer.timer("mpeg2.recon.b", pic=self._pic_no)
+        else:
+            inner = timer.timer("mpeg2.recon.anchor", pic=self._pic_no,
+                                type="P" if pic.pict_type == PICT_P
+                                else "I")
+        with timer.timer("mpeg2.recon", pic=self._pic_no), inner:
             frame = self._reconstruct(mb)
         frame.pts = getattr(self, "_cur_pts", None)
         frame.time_base = getattr(self, "_cur_tb", None)

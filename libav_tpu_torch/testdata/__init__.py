@@ -554,6 +554,21 @@ def pattern(width: int, height: int, t: int):
     return y, u, v
 
 
+def pattern_fade(width: int, height: int, t: int):
+    """Frame t of `pattern` dipped toward black, as at a programme break:
+    luma y * (32 - 2t) // 32, chroma 128 + (c - 128) * (32 - 2t) // 32
+    (floor division). No anchor predicts a faded MB exactly, so the
+    MPEG-2 encoder's B pictures carry bi-predicted MBs, which the plain
+    pattern's pure translation never gives them. The source of the fade
+    GOP of the `mpeg2_mp_1080p` benchmark configuration
+    (`tools/gen_torch_smoke_stream.py mpeg2fade`)."""
+    gain = 32 - 2 * t
+    y, u, v = (p.astype(np.int32) for p in pattern(width, height, t))
+    y = y * gain // 32
+    u, v = (128 + (c - 128) * gain // 32 for c in (u, v))
+    return tuple(p.astype(np.uint8) for p in (y, u, v))
+
+
 def pattern10(width: int, height: int, t: int,
               fmt: str = "yuv422p10le"):
     """Frame t of a 10-bit 4:2:2 (yuv422p10le) or 4:4:4 (yuv444p10le)

@@ -97,6 +97,13 @@ package's decoder, and written with its golden into
             planes' adler32 and the JAX decoder's frame digests, and the
             "N frames shown, M dropped" line of the JAX avplay with -vo
             null on bench.h264 (~3 min)
+    mpeg2fade  the fade GOP of the benchmark's mpeg2_mp_1080p configuration
+            and its 64x64 twin for the benchmark's CPU tests (MPEG2_FADE):
+            7 frames of testdata.pattern_fade through the JAX MPEG-2
+            encoder with mpeg2_1080p_ipbb's settings (I B B P B B P),
+            as packets, with <stream>.provenance.json beside each (bytes,
+            md5, settings, the recipe, the JAX decoder's frame md5s in
+            display order); no golden in testdata (~1 min)
     legacy  testdata.LEGACY's streams from tools/legacy_streams.py (H.263
             16CIF as .263; FLV1, MSMPEG4 v3, v2 and WMV1 at 1280x720 in
             FLV and AVI; 6 pictures each), legacy.golden.json with the JAX
@@ -111,7 +118,7 @@ framecrc, mpeg4 and config5 need the streams written first):
     JAX_PLATFORMS=cpu python tools/gen_torch_smoke_stream.py \
         [h264] [mpeg2] [mjpeg] [small] [framecrc] [mpeg4] [mpeg4asp] \
         [h264ext] [config5] [containers] [filters] [mpeg12enc] [legacy] \
-        [h264enc] [prores] [ffv1] [devgop]
+        [h264enc] [prores] [ffv1] [devgop] [mpeg2fade]
 """
 
 from __future__ import annotations
@@ -132,21 +139,24 @@ import numpy as np  # noqa: E402
 import bench  # noqa: E402
 from libav_tpu_torch import testdata  # noqa: E402
 
-def pattern(width: int, height: int, t: int, pix_fmt: str = "yuv420p"):
-    """Frame t of bench.py's moving test pattern (`testdata.pattern`), as
-    a host 4:2:0 Frame."""
+def pattern(width: int, height: int, t: int, pix_fmt: str = "yuv420p",
+            source=testdata.pattern):
+    """Frame t of bench.py's moving test pattern (`testdata.pattern`, or
+    another source of host planes such as `testdata.pattern_fade`), as a
+    host 4:2:0 Frame."""
     from libav_tpu.avutil.frame import Frame
     f = Frame.alloc_video(width, height, pix_fmt)
-    planes = testdata.pattern(width, height, t)
+    planes = source(width, height, t)
     assert [p.shape for p in planes] == [p.shape for p in f.planes[:3]]
     f.planes[:3] = planes
     return f
 
 
 def encode(width: int, height: int, nframes: int, codec_id: str = "h264",
-           settings=None, pix_fmt: str = "yuv420p"):
-    """nframes of the pattern through the JAX package's encoder (H.264
-    with the bench settings by default): a list of packet bytes."""
+           settings=None, pix_fmt: str = "yuv420p", source=testdata.pattern):
+    """nframes of the pattern (or of `source`) through the JAX package's
+    encoder (H.264 with the bench settings by default): a list of packet
+    bytes."""
     from libav_tpu.avutil.rational import Rational
     from libav_tpu.codecs.api import CodecParameters, MediaType, find_encoder
     par = CodecParameters(codec_type=MediaType.VIDEO, codec_id=codec_id,
@@ -157,7 +167,8 @@ def encode(width: int, height: int, nframes: int, codec_id: str = "h264",
                  else settings).items():
         enc.set_opt(k, v)
     return [p.data for p in enc.encode_all(
-        [pattern(width, height, t, pix_fmt) for t in range(nframes)])]
+        [pattern(width, height, t, pix_fmt, source)
+         for t in range(nframes)])]
 
 
 def decode_reference(datas, codec_id: str = "h264"):
@@ -468,6 +479,53 @@ def encode_mpeg12(codec, nframes, settings, width=1920, height=1080):
     datas = [p.data for p in enc.encode_all(
         [pattern(width, height, t) for t in range(nframes)])]
     return datas, anchors
+
+
+# the fade GOP (testdata.pattern_fade) of the benchmark's configuration
+# mpeg2_mp_1080p, and its twin for the benchmark's CPU tests: the file
+# under the repository root -> (width, height)
+MPEG2_FADE = {
+    "avbench/streams/mpeg2_1080p_ipbb_fade.m2vpkts": (1920, 1080),
+    "avbench/tests/data/mpeg2_64x64_ipbb_fade.m2vpkts": (64, 64),
+}
+
+
+def write_mpeg2_fade():
+    """Each MPEG2_FADE stream, with a provenance file beside it that holds
+    the JAX decoder's md5 of every frame (avbench/reference.py's md5: the
+    planes' bytes in order)."""
+    import hashlib
+    nframes, settings = testdata.MPEG2_STREAMS["mpeg2_1080p_ipbb"]
+    for rel, (w, h) in MPEG2_FADE.items():
+        path = os.path.join(REPO, rel)
+        datas = encode(w, h, nframes, "mpeg2video", settings,
+                       source=testdata.pattern_fade)
+        testdata.write_packets(path, datas)
+        with open(path, "rb") as f:
+            data = f.read()
+        frames = testdata.digest(decode_reference(datas, "mpeg2video"))
+        name = os.path.basename(path)
+        prov = {
+            "format": "4-byte big-endian length-prefixed packets, one "
+                      "MPEG-2 coded frame picture each",
+            "streams": {name: {
+                "bytes": len(data),
+                "md5": hashlib.md5(data).hexdigest(),
+                "source": f"testdata.pattern_fade at {w}x{h}, t = 0.."
+                          f"{nframes - 1}: luma y * (32 - 2t) // 32, chroma "
+                          "128 + (c - 128) * (32 - 2t) // 32 over "
+                          "testdata.pattern (a dip toward black)",
+                "encoder": "the JAX package's MPEG-2 encoder "
+                           "(libav_tpu.codecs.mpeg12.enc) at 25 fps, "
+                           "tools/gen_torch_smoke_stream.py mpeg2fade",
+                "settings": settings,
+                "frame_md5_from": "the JAX package's decoder on the CPU, "
+                                  "in display order",
+                "frame_md5": [fr["md5"] for fr in frames["frames"]]}}}
+        with open(path[:-len(".m2vpkts")] + ".provenance.json", "w") as f:
+            json.dump(prov, f, indent=1)
+            f.write("\n")
+        print(f"{rel}: {len(datas)} packets, {len(data)} bytes")
 
 
 def write_mpeg12():
@@ -947,10 +1005,13 @@ def main(which):
         write_ffv1()
     if "devgop" in which:
         write_devices_gop()
+    if "mpeg2fade" in which:
+        write_mpeg2_fade()
 
 
 if __name__ == "__main__":
     main(sys.argv[1:] or ("h264", "mpeg2", "mjpeg", "small", "framecrc",
                           "mpeg4", "mpeg4asp", "h264ext", "config5",
                           "containers", "filters", "mpeg12enc", "legacy",
-                          "h264enc", "prores", "ffv1", "devgop"))
+                          "h264enc", "prores", "ffv1", "devgop",
+                          "mpeg2fade"))
