@@ -16,7 +16,9 @@ places that reach a device program, `_reconstruct` (frame pictures),
 field pair) and `_zero_refs`; and `_decode_slice`, which runs the native
 slice decoder where the library is built, the copied MB loop
 (`_decode_slice_py`) being its twin. The numpy inputs go to the device
-synchronously (hwdevice.state_from_numpy) on the thread that decodes.
+synchronously (hwdevice.state_from_numpy) on the thread that decodes; on
+the card the two recon programs then replay from CUDA graphs
+(`mpegvideo.recon_graphed`, `recon_field_graphed`).
 
 Supported: MPEG-1 I/P/B CPB; MPEG-2 main profile frame pictures
 (progressive + interlaced tools: field MC in frame pictures with per-
@@ -461,8 +463,8 @@ class MPEG1Decoder(Decoder):
         padded) in FIELD geometry."""
         fields_of_frame_jit = hwdevice.program_factory(
             mpegvideo.fields_of_frame, self.device)
-        recon_field_jit = hwdevice.program_factory(mpegvideo.recon_field,
-                                                   self.device)
+        recon_field_jit = hwdevice.program_factory(
+            mpegvideo.recon_field_graphed, self.device)
         zero_pad_refs = functools.partial(mpegvideo.zero_pad_refs,
                                           device=self.device)
         seq, pic = self.seq, self.pic
@@ -1028,7 +1030,8 @@ class MPEG1Decoder(Decoder):
     # ------------------------------------------------------------------ #
 
     def _reconstruct(self, mb: MBData) -> Frame:
-        recon_jit = hwdevice.program_factory(mpegvideo.recon, self.device)
+        recon_jit = hwdevice.program_factory(mpegvideo.recon_graphed,
+                                             self.device)
         seq, pic = self.seq, self.pic
         interlaced = bool(mb.field_mc.any() or mb.dct_field.any())
         dual = bool(mb.dp.any())

@@ -21,6 +21,11 @@ One program per coded picture, the JAX package's stages:
      pictures pick a reference field per 16x8 half;
   3. assembly: prediction + residual, clamped, laid out as planes, and
      the edge-padded planes the next picture predicts from.
+The decoder's programs (`Recon`, `ReconField`) split at K2: stage A is
+stage 1 up to the IDCT, stage B the rest after it. The
+MPEG-1/2 decoder runs them through `recon_graphed` and
+`recon_field_graphed`, which replay both stages from CUDA graphs on the
+card with K2 launched eagerly between them (codecs/cudagraph.py).
 
 The encoder's programs (`Encode`, `EncodeB`, `EncodeBMpeg`,
 `EncodeFieldStress`, `GMCResidual`) run motion search (ops/me.py; bounded
@@ -48,7 +53,7 @@ import torch
 from torch import nn
 
 from libav_tpu_torch.avutil import timer
-from libav_tpu_torch.codecs import msmpeg4_tables
+from libav_tpu_torch.codecs import cudagraph, msmpeg4_tables
 from libav_tpu_torch.ops.quant import alternate_scan, zigzag_scan
 from libav_tpu_torch.ops import quant as quant_ops
 from libav_tpu_torch.ops.fdct import fdct8x8_int
@@ -125,8 +130,9 @@ class _Picture(nn.Module):
                                self.wmv1_c_dc_scale[q])
         return quant_ops.dc_scaler(qs, self.luma_blk)
 
-    def residual(self, coeffs, qscale, intra, intra_q, inter_q):
-        """(nmb, 6, 64) scan-order levels -> (nmb, 6, 8, 8) int32."""
+    def dequant(self, coeffs, qscale, intra, intra_q, inter_q):
+        """(nmb, 6, 64) scan-order levels -> the (6 nmb, 8, 8) int32
+        blocks K2 transforms: dequant, inverse scan, mismatch control."""
         n6 = self.nmb * 6
         c = coeffs.reshape(n6, 64).to(torch.int32)
         qs = qscale.to(torch.int32).repeat_interleave(6)
@@ -150,7 +156,7 @@ class _Picture(nn.Module):
                                     self.pos)
         if self.quant_kind == "mpeg2":
             blocks = quant_ops.mpeg2_mismatch_control(blocks)
-        return idct8x8_int(blocks.contiguous()).reshape(self.nmb, 6, 8, 8)
+        return blocks.contiguous()
 
     def mc6(self, refs, mv, rnd: int, ridx=None, chroma_mv=None):
         """Luma 16x16 and chroma 8x8 half-pel MC of every MB from the
@@ -189,7 +195,26 @@ class _Picture(nn.Module):
                             device=device))
 
 
-class Recon(_Picture):
+class _Recon(_Picture):
+    """A decoder's recon program, split at K2: `stage_a` of forward's
+    arguments -> the (6 nmb, 8, 8) int32 blocks K2 transforms, `kernel`
+    (K2), `stage_b` of K2's output and the same arguments -> (planes,
+    edge-padded planes), uint8. forward runs stage A, K2, stage B;
+    codecs/cudagraph.py replays the two stages from CUDA graphs around
+    the same `kernel`."""
+
+    def forward(self, *args, **kw):
+        return self.stage_b(self.kernel(self.stage_a(*args, **kw)),
+                            *args, **kw)
+
+    @staticmethod
+    def kernel(blocks):
+        # the module's name, looked up at each call on either path, so a
+        # stand-in set over it (avbench/control.py) reaches both
+        return idct8x8_int(blocks)
+
+
+class Recon(_Recon):
     """Frame-picture recon; the JAX recon_jit program. interlaced=True
     adds the frame-picture interlace tools: 16x8 field MC (two field
     vectors and field selects per direction), field DCT, and with
@@ -264,12 +289,16 @@ class Recon(_Picture):
                         rnd, ridx)[:, :4]))
         return tuple(_interleave_rows(t, b) for t, b in zip(*halves))
 
-    def forward(self, coeffs, qscale, intra, use_fwd, use_bwd, mv_fwd,
+    def stage_a(self, coeffs, qscale, intra, use_fwd, use_bwd, mv_fwd,
+                mv_bwd, intra_q, inter_q, *refs, **tools):
+        return self.dequant(coeffs, qscale, intra, intra_q, inter_q)
+
+    def stage_b(self, idct, coeffs, qscale, intra, use_fwd, use_bwd, mv_fwd,
                 mv_bwd, intra_q, inter_q, r0y, r0u, r0v, r1y, r1u, r1v,
                 field_mc=None, dct_field=None, mvf2=None, mvb2=None,
                 sel_f=None, sel_b=None, dp=None, mv_dp2=None, sel_dp=None,
                 use4=None, mv4f=None, mv4b=None):
-        resid = self.residual(coeffs, qscale, intra, intra_q, inter_q)
+        resid = idct.reshape(self.nmb, 6, 8, 8)
         if self.inter_frame:
             rnd = 1 - self.rounding
             fwd = self.pred_dir((r0y, r0u, r0v), mv_fwd, mv4f, use4, rnd)
@@ -304,7 +333,7 @@ class Recon(_Picture):
         return self.assemble(pred, luma_res, resid)
 
 
-class ReconField(_Picture):
+class ReconField(_Recon):
     """Field-picture recon (ISO 13818-2 7.6.2); the JAX recon_field_jit
     program. The picture is one field of mb_w x mb_h_f MBs; references
     arrive as padded field planes per parity, (f0t, f0b) forward or most
@@ -317,12 +346,16 @@ class ReconField(_Picture):
         super().__init__(mb_w, mb_h_f, alt_scan, "mpeg2")
         self.inter_frame, self.dual = inter_frame, dual
 
-    def forward(self, coeffs, qscale, intra, use_fwd, use_bwd,
+    def stage_a(self, coeffs, qscale, intra, use_fwd, use_bwd, mvf2, sel_f,
+                mvb2, sel_b, intra_q, inter_q, *refs, **dual):
+        return self.dequant(coeffs, qscale, intra, intra_q, inter_q)
+
+    def stage_b(self, idct, coeffs, qscale, intra, use_fwd, use_bwd,
                 mvf2, sel_f, mvb2, sel_b, intra_q, inter_q,
                 f0ty, f0tu, f0tv, f0by, f0bu, f0bv,
                 f1ty, f1tu, f1tv, f1by, f1bu, f1bv,
                 dp=None, mv_dp2=None, sel_dp=None):
-        resid = self.residual(coeffs, qscale, intra, intra_q, inter_q)
+        resid = idct.reshape(self.nmb, 6, 8, 8)
         if self.inter_frame:
             fref = [torch.stack(tb) for tb in
                     ((f0ty, f0by), (f0tu, f0bu), (f0tv, f0bv))]
@@ -703,6 +736,21 @@ def recon_field(mb_w: int, mb_h_f: int, alt_scan: bool, inter_frame: bool,
                 dual: bool = False, *, device: torch.device) -> ReconField:
     timer.count("programs.built", program="recon_field")
     return ReconField(mb_w, mb_h_f, alt_scan, inter_frame, dual).to(device)
+
+
+def recon_graphed(*key, device: torch.device, **flags):
+    """`recon`'s program run through its CUDA graphs
+    (`cudagraph.graphed`, counters `mpeg2.recon.*`): the MPEG-1/2
+    decoder's frame pictures."""
+    return cudagraph.graphed(recon(*key, device=device, **flags),
+                             "mpeg2.recon")
+
+
+def recon_field_graphed(*key, device: torch.device, **flags):
+    """`recon_field`'s program run through its CUDA graphs: the MPEG-2
+    decoder's field pictures."""
+    return cudagraph.graphed(recon_field(*key, device=device, **flags),
+                             "mpeg2.recon")
 
 
 @functools.lru_cache(maxsize=8)

@@ -129,18 +129,19 @@ def stages(dev: torch.device, codec: str = "mpeg4"):
         return ("P search (full + half pel)"
                 if isinstance(module, mpegvideo.Encode)
                 else "B search (full + half pel), per direction")
-    recon = "anchor recon (one K2 launch)"
+    def recon(module, *args):
+        return ("field recon (one K2 launch)"
+                if isinstance(module, mpegvideo.ReconField)
+                else "anchor recon (one K2 launch)")
     patches = [(mpegvideo._EncodePicture, "motion", search),
                (mpegvideo._EncodePicture, "quantize", "FDCT + quant"),
-               (mpegvideo.Recon, "forward", recon)]
+               (mpegvideo._Recon, "forward", recon)]
     if codec == "mpeg4":
         patches += [(MPEG4Encoder, "_download", "levels/MV/intra download"),
                     (MPEG4Encoder, "_pack", "I/P host packing"),
                     (MPEG4Encoder, "_b_layer", "B host packing")]
     else:
-        patches += [(mpegvideo.ReconField, "forward",
-                     "field recon (one K2 launch)"),
-                    (MPEG1Encoder, "_download", "levels/MV/intra download"),
+        patches += [(MPEG1Encoder, "_download", "levels/MV/intra download"),
                     (MPEG1Encoder, "_pack", "I/P host packing"),
                     (MPEG1Encoder, "_slices_b", "B host packing")]
     saved = []

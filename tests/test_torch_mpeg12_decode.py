@@ -21,6 +21,7 @@ import torch
 from libav_tpu.codecs.api import CodecParameters, MediaType
 from libav_tpu.codecs.api import find_decoder as jax_find
 from libav_tpu_torch import testdata
+from libav_tpu_torch.avutil import timer
 from libav_tpu_torch.avutil.frame import Packet
 from libav_tpu_torch.codecs import find_decoder, mpegvideo
 from libav_tpu_torch.codecs.mpeg12 import MPEG1Decoder, MPEG2Decoder
@@ -98,6 +99,24 @@ def test_one_idct_per_coded_picture(monkeypatch):
     codec, datas, _ = stream("mpeg2_ipb")
     _port_decode(codec, datas)
     assert calls == [4 * 3 * 6] * 7
+
+
+@pytest.mark.parametrize("name, pictures", [
+    ("field_full", 4), ("mpeg2_ipb", 7), ("mpeg1_ipb", 7)])
+def test_cpu_decoder_runs_recon_eagerly(name, pictures):
+    """Off the card the recon programs run eagerly, through the same
+    entry as on it: one `mpeg2.recon.eager` per coded picture, no graph
+    replayed or captured, and the JAX decoder's frames."""
+    codec, datas, ref = stream(name)
+    before = timer.counters()
+    got = _port_decode(codec, datas)
+    after = timer.counters()
+    diff = {k: after.get(k, 0) - before.get(k, 0)
+            for k in ("mpeg2.recon.eager", "mpeg2.recon.graph",
+                      "mpeg2.recon.capture")}
+    assert diff == {"mpeg2.recon.eager": pictures, "mpeg2.recon.graph": 0,
+                    "mpeg2.recon.capture": 0}
+    _assert_same(got, ref)
 
 
 def test_cpu_tensors_launch_no_kernel():
